@@ -15,6 +15,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    - digest quantiles (K2) against its plain version over 16384 and
      131072 rows x 472 cells, Q=4, empty and duplicate-key rows included:
      within rtol/atol 2e-5;
+   - masked window merge (K3) against its plain version on the same
+     card tensors over 256 set rows x 360 ring columns x 3072 words
+     (p=14) and 32 steps (tier-0 columns, decimated-tier covers, every
+     column, none): byte-exact;
    each with its time, the plain version's time and its bound (the least
    time the card could take: bytes over 3.35 TB/s or operations over
    67 TFLOP/s of fp32, whichever is larger);
@@ -26,7 +30,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    key with >= 100 members; both
    kernels launched by that run;
 5. the same path at the 1M-key table spec, staged in bulk, with the same
-   oracles.
+   oracles;
+6. the history tier at the default widths and the default ring (90
+   windows, 3 tiers: 3,210,117,120 bytes on the card): 16 intervals of
+   phase 4's traffic, each flushed with the ring write fused in, then
+   one range batch (all counters and gauges and every set row, 16
+   one-interval steps and one over everything; 1,024 timers in 4-interval
+   windows every 2 intervals). Gates: the fused ring is bit-identical to
+   a replay of the archived frames; range counters are the exact sums of
+   the flushed counters and gauges the last flushed value; K3's merged
+   words equal numpy's; the batch over a CPU copy of the ring (plain
+   versions) agrees byte-exactly, set estimates within rtol 1e-6 and
+   quantiles within rtol/atol 2e-5; K2 and K3 were launched by it.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -314,6 +329,71 @@ def kernel_digest(device, rows: int) -> dict:
                 bytes=nbytes, ops=ops)
 
 
+def _merge_work(n: int, sel: np.ndarray, nw: int):
+    """(bytes, operations) of one window merge: every column that some
+    step selects is read once per row, the output written once; the
+    16 shift/mask/max per 3 words are counted as operations."""
+    cols = int((sel > 0).any(axis=0).sum())
+    words_in = n * cols * nw
+    words_out = n * sel.shape[0] * nw
+    ops = int((sel > 0).sum()) * n * nw // 3 * 16 * 3 + words_out // 3 * 32
+    return (words_in + words_out) * 4, ops
+
+
+def _k3_sel(windows: int, tiers: int, steps: int = 32) -> np.ndarray:
+    """Step masks over a full ring: 16 tier-0 single columns, covers
+    that mix a tier-0 column with decimated tier 1-3 columns, one step
+    over every column and one over none."""
+    w = windows * (tiers + 1)
+    sel = np.zeros((steps, w), np.float32)
+    for i in range(16):
+        sel[i, i] = 1.0
+    for j in range(steps - 18):
+        sel[16 + j, [20 + j] + [t * windows + j for t in range(1, tiers + 1)]
+            ] = 1.0
+    sel[steps - 2] = 1.0
+    return sel
+
+
+def kernel_merge_windows(device, p=14, n=256, windows=90, tiers=3) -> dict:
+    """K3 at the default ring's full set shape: 256 rows x 360 columns
+    x 3072 words (p=14), registers 0..61, some all-zero rows and
+    columns, 32 steps."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_history, hll
+
+    w, nw = windows * (tiers + 1), hll.packed_words(p)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    rows = torch.empty((n, w, nw), dtype=torch.int32, device=device)
+    for c in range(w):
+        regs = torch.randint(0, 62, (n, hll.num_registers(p)), generator=gen,
+                             dtype=torch.uint8, device=device)
+        rows[:, c] = hll.pack_registers(regs, precision=p)
+    rows[::37] = 0
+    rows[:, ::41] = 0
+    sel_np = _k3_sel(windows, tiers)
+    sel = torch.from_numpy(sel_np).to(device)
+    got = cuda_history.merge_windows_packed(rows, sel, precision=p)
+    want = cuda_history.merge_windows_packed_plain(rows, sel, precision=p)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, want),
+           "merge_windows differs from the plain version")
+    _check(not got[:, -1].any() and bool(got[1:, -2].any()),
+           "merge_windows: empty / all-column step wrong")
+    err = float((got.long() - want.long()).abs().max())
+    del want
+    ms = _time_ms(lambda: cuda_history.merge_windows_packed(
+        rows, sel, precision=p), device, 20)
+    plain_ms = _time_ms(lambda: cuda_history.merge_windows_packed_plain(
+        rows, sel, precision=p), device, 2, warmup=1)
+    nbytes, ops = _merge_work(n, sel_np, nw)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return dict(rows=n, cols=w, words=nw, steps=sel_np.shape[0],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, ops=ops)
+
+
 # -- phase 4: the main path at the default widths ------------------------------
 
 def make_lines(rng, n: int):
@@ -440,14 +520,13 @@ def main_path(device, lines) -> dict:
     flush and label; returns timings, launch counts and oracle results."""
     import torch
     from veneur_tpu_torch.aggregation.host import BatchSpec
-    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
     from veneur_tpu_torch.samplers.parser import parse_metric
     from veneur_tpu_torch.server.aggregator import Aggregator
     from veneur_tpu_torch.server.flusher import generate_intermetrics
 
     agg = Aggregator(_default_spec(), BatchSpec(), device=device)
-    cuda_ingest.launches = 0
-    cuda_digest.launches = 0
+    cuda_ingest.launches = cuda_digest.launches = cuda_history.launches = 0
     t0 = time.perf_counter()
     for line in lines:
         agg.process_metric(parse_metric(line))
@@ -462,7 +541,8 @@ def main_path(device, lines) -> dict:
                                 timestamp=int(time.time()))
     t3 = time.perf_counter()
     launches = {"fused_ingest": cuda_ingest.launches,
-                "digest_quantiles": cuda_digest.launches}
+                "digest_quantiles": cuda_digest.launches,
+                "merge_windows": cuda_history.launches}
     checked = _check_flush(res, table, *_oracle(lines), label="default")
     n_h = checked["timers"]
     want_ims = (checked["counters"] + checked["gauges"] + checked["sets"]
@@ -572,6 +652,302 @@ def million_keys(device) -> dict:
                                 for t in state), **checked)
 
 
+# -- phase 6: the history tier at the default widths ---------------------------
+
+HIST_INTERVALS = 16
+HIST_RANGES = ((160.0, None, 10.0),     # counters, gauges, sets: per interval
+               (160.0, None, None),     # one step over everything
+               (160.0, 40.0, 20.0))     # timers: 4-interval windows every 2
+
+
+def _range_batch(wr, need, device):
+    """Plan, pack, copy in, run, copy out and unpack one range batch;
+    returns (answers, inputs, host-clock ms per stage)."""
+    import torch
+    from veneur_tpu_torch.aggregation.step import unpack_flush
+    from veneur_tpu_torch.history import merge as hmerge
+
+    t = [time.perf_counter()]
+    plans = [wr.plan_range(r, win, st, hmerge.MAX_STEPS)
+             for r, win, st in HIST_RANGES]
+    sel = np.concatenate([pl.sel for pl in plans])
+    steps = [s for pl in plans for s in pl.steps]
+    t.append(time.perf_counter())
+    flat, n_q, n_steps, buckets, _qcol = hmerge.pack_range_inputs(
+        wr.spec, need, sel, plans[0].rank, set(PERCENTILES))
+    t.append(time.perf_counter())
+    hflat = torch.from_numpy(flat).to(device)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    hist = wr.acquire_read()
+    try:
+        packed = hmerge.range_in_packed(hist, hflat, hspec=wr.spec, n_q=n_q,
+                                        n_steps=n_steps, buckets=buckets)
+    finally:
+        wr.release_read()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    host = packed.cpu().numpy()
+    t.append(time.perf_counter())
+    res = unpack_flush(host, hmerge.range_shapes(wr.spec, buckets, n_steps,
+                                                 n_q))
+    t.append(time.perf_counter())
+    ms = {name: (b - a) * 1e3 for name, a, b in zip(
+        ("plan", "pack", "copy_in", "program", "copy_out", "unpack"),
+        t, t[1:])}
+    ms["total"] = (t[-1] - t[0]) * 1e3
+    inputs = dict(flat=flat, n_q=n_q, n_steps=n_steps, buckets=buckets,
+                  sel=np.pad(sel, ((0, n_steps - sel.shape[0]), (0, 0))),
+                  steps=steps)
+    return res, inputs, ms
+
+
+def _check_range_sums(res, inputs, need, row_key, frames):
+    """Gate (b): per step, each counter is the exact sum of the key's
+    flushed counters over the step's intervals, each gauge the last
+    flushed value in them (NaN where the key never flushed)."""
+    per_iv = []
+    for table, out, _raw in frames:
+        c = {(m.kind, m.name, m.joined_tags): v for (_s, m), v in
+             zip(table.get_meta("counter"), out["counter"])}
+        g = {(m.kind, m.name, m.joined_tags): v for (_s, m), v in
+             zip(table.get_meta("gauge"), out["gauge"])}
+        per_iv.append((c, g))
+    chi, clo = res["r_counter_hi"], res["r_counter_lo"]
+    gauge = res["r_gauge"]
+    for j, st in enumerate(inputs["steps"]):
+        span = range(st.seq_lo, st.seq_hi + 1)
+        for i, row in enumerate(need[0]):
+            key = row_key[(0, row)]
+            want = sum(per_iv[s][0].get(key, 0.0) for s in span)
+            got = float(chi[i, j]) + float(clo[i, j])
+            _check(got == want, f"range counter {key} step {j}: {got} != "
+                   f"{want}")
+        for i, row in enumerate(need[1]):
+            key = row_key[(1, row)]
+            vals = [per_iv[s][1][key] for s in span if key in per_iv[s][1]]
+            want = np.float32(vals[-1]) if vals else np.float32(np.nan)
+            _check(np.array_equal(gauge[i, j], want, equal_nan=True),
+                   f"range gauge {key} step {j}: {gauge[i, j]} != {want}")
+    pad = slice(len(inputs["steps"]), None)
+    _check(not chi[:, pad].any() and np.isnan(gauge[:, pad]).all(),
+           "padding steps must be empty")
+
+
+def _merge_np(rows: np.ndarray, sel: np.ndarray, p: int) -> np.ndarray:
+    """Gate (c)'s reference: numpy unpack, register max over each step's
+    columns, repack."""
+    from veneur_tpu_torch.ops import hll
+    regs = {c: hll.unpack_registers_np(rows[:, c], p)
+            for c in np.nonzero((sel > 0).any(axis=0))[0]}
+    out = np.zeros((rows.shape[0], sel.shape[0], rows.shape[2]), np.int32)
+    for s in range(sel.shape[0]):
+        cols = np.nonzero(sel[s] > 0)[0]
+        if cols.size:
+            out[:, s] = hll.pack_registers_np(
+                np.max([regs[c] for c in cols], axis=0), p)
+    return out
+
+
+def _compare_range(got, want, label):
+    """Test 4's tolerances: set estimates rtol 1e-6, histogram quantiles
+    rtol/atol 2e-5, everything else byte-exact. Returns the largest
+    difference seen."""
+    err = 0.0
+    for key in want:
+        a, b = got[key], want[key]
+        if key in ("r_set_estimate", "r_histo_quantiles"):
+            tol = 1e-6 if key == "r_set_estimate" else 2e-5
+            _check(np.array_equal(np.isnan(a), np.isnan(b)),
+                   f"{label}: {key} NaN pattern differs")
+            ok = ~np.isnan(b)
+            d = np.abs(a[ok].astype(np.float64) - b[ok])
+            lim = tol * np.abs(b[ok]) + (tol if "histo" in key else 0.0)
+            _check((d <= lim).all(), f"{label}: {key} off by {d.max()} "
+                   f"on {int((d > lim).sum())} entries")
+            err = max(err, float(d.max(initial=0.0)))
+        else:
+            _check(a.tobytes() == b.tobytes(), f"{label}: {key} differs")
+    return err
+
+
+def history_path(device) -> dict:
+    """The history tier through the port's entry points: compute_flush
+    with the ring write fused in, decimation at each power-of-two
+    boundary, then one range batch through range_in_packed."""
+    import torch
+    from veneur_tpu_torch import convert
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.aggregation.step import _take, unpack_flush
+    from veneur_tpu_torch.history import HistorySpec, HistoryWriter
+    from veneur_tpu_torch.history import device as hdev
+    from veneur_tpu_torch.history import merge as hmerge
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.samplers.parser import parse_metric
+    from veneur_tpu_torch.server.aggregator import Aggregator
+
+    spec = _default_spec()
+    hspec = HistorySpec.for_table(spec, windows=90, tiers=3,
+                                  max_keys=1 << 20)
+    agg = Aggregator(spec, BatchSpec(), device=device)
+    wr = HistoryWriter(hspec, interval_s=10.0, device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    ring = wr.acquire_read()
+    wr.release_read()
+    torch.cuda.synchronize()
+    ring_bytes = sum(t.numel() * t.element_size() for t in ring)
+    alloc = torch.cuda.memory_allocated(device) - before
+    _check(hspec.hbm_bytes() == ring_bytes == alloc == 3_210_117_120,
+           f"ring: spec {hspec.hbm_bytes()}, tensors {ring_bytes}, "
+           f"allocated {alloc} bytes")
+    rows = [hspec.rows_for(k) for k in range(5)]
+    _check(rows == [131072, 32768, 1024, 256, 16384]
+           and hspec.total_cols == 360 and hspec.centroids == 32,
+           f"ring geometry {rows} x {hspec.total_cols} x {hspec.centroids}")
+
+    cuda_ingest.launches = cuda_digest.launches = cuda_history.launches = 0
+    frames, flush_ms, plain_flush_ms, ingest_s = [], [], [], 0.0
+    for i in range(HIST_INTERVALS):
+        lines = make_lines(np.random.default_rng(100 + i), 12_500)
+        t0 = time.perf_counter()
+        for line in lines:
+            agg.process_metric(parse_metric(line))
+        state, table = agg.swap()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain, _t, _r = agg.compute_flush(state, table, PERCENTILES,
+                                          want_raw=True)
+        t2 = time.perf_counter()
+        res, table, raw = agg.compute_flush(state, table, PERCENTILES,
+                                            want_raw=True, history=wr)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _check(all(res[k].tobytes() == plain[k].tobytes() for k in plain),
+               f"interval {i}: the fused flush changed the flush outputs")
+        ingest_s += t1 - t0
+        plain_flush_ms.append((t2 - t1) * 1e3)
+        flush_ms.append((t3 - t2) * 1e3)
+        frames.append((table, res, raw))
+    _check(wr.seq == HIST_INTERVALS, f"writer at seq {wr.seq}")
+
+    need = [[] for _ in range(5)]
+    row_key = {}
+    for k, key, row in sorted(wr.iter_keys(), key=lambda e: (e[0], e[2])):
+        need[k].append(row)
+        row_key[(k, row)] = key
+    need[2] = []                         # the traffic sends no status checks
+    need[4] = need[4][:1024]
+    k2, k3 = cuda_digest.launches, cuda_history.launches
+    res, inputs, range_ms = _range_batch(wr, need, device)
+    range_launches = {"digest_quantiles": cuda_digest.launches - k2,
+                      "merge_windows": cuda_history.launches - k3}
+    _res2, _inputs2, range_ms_warm = _range_batch(wr, need, device)
+    launches = {"fused_ingest": cuda_ingest.launches,
+                "digest_quantiles": cuda_digest.launches,
+                "merge_windows": cuda_history.launches}
+    _check(launches["fused_ingest"] == agg.steps_total,
+           "history: fused_ingest launches != ingest steps")
+    _check(range_launches["digest_quantiles"] >= 1
+           and range_launches["merge_windows"] >= 1,
+           f"range batch launches {range_launches}")            # gate (e)
+
+    # gate (a): the fused ring is the replay of the archived frames
+    replay = HistoryWriter(hspec, interval_s=10.0, device=device)
+    for table, out, raw in frames:
+        replay.record_frame(table, out, raw)
+    a, b = wr.acquire_read(), replay.acquire_read()
+    for name, x, y in zip(hdev.HISTORY_FIELDS, a, b):
+        _check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+               f"fused ring field {name} differs from the replay")
+    wr.release_read()
+    replay.release_read()
+    del replay, a, b
+    torch.cuda.empty_cache()
+
+    _check_range_sums(res, inputs, need, row_key, frames)        # gate (b)
+
+    # gate (c): K3's words for the set rows against numpy
+    p = hspec.hll_precision
+    hist = wr.acquire_read()
+    wr.release_read()
+    idx, off = {}, inputs["n_q"]
+    for k, nb in enumerate(inputs["buckets"]):      # the program's gathers
+        idx[k] = torch.from_numpy(
+            inputs["flat"][off:off + nb].astype(np.int64)).to(device)
+        off += nb
+    setidx = idx[3]
+    bs = inputs["buckets"][3]
+    sel = torch.from_numpy(inputs["sel"]).to(device)
+    set_rows = _take(hist.hll, setidx)
+    merged = cuda_history.merge_windows_packed(set_rows, sel, precision=p)
+    _check(np.array_equal(merged.cpu().numpy(), _merge_np(
+        set_rows.cpu().numpy(), inputs["sel"], p)),
+        "merge_windows differs from numpy on the ring's set rows")
+
+    # gate (d): the same batch over a CPU copy of the ring
+    t0 = time.perf_counter()
+    cpu_hist = convert.history_from_numpy(convert.history_to_numpy(hist),
+                                          "cpu")
+    cpu_packed = hmerge.range_in_packed(
+        cpu_hist, torch.from_numpy(inputs["flat"]), hspec=hspec,
+        n_q=inputs["n_q"], n_steps=inputs["n_steps"],
+        buckets=inputs["buckets"])
+    cpu_res = unpack_flush(cpu_packed.numpy(), hmerge.range_shapes(
+        hspec, inputs["buckets"], inputs["n_steps"], inputs["n_q"]))
+    cpu_s = time.perf_counter() - t0
+    range_err = _compare_range(res, cpu_res, "range vs CPU plain")
+    del cpu_hist
+    _check(np.isfinite(res["r_histo_quantiles"][:, :len(inputs["steps"])]
+                       ).any() and (res["r_set_estimate"] > 0).any(),
+           "range batch answered nothing")
+
+    # the range program's parts, each timed alone on the same inputs
+    k3_ms = _time_ms(lambda: cuda_history.merge_windows_packed(
+        set_rows, sel, precision=p), device, 20)
+    k3_bytes, k3_ops = _merge_work(bs, inputs["sel"], hspec.hll_words)
+    k3_bound_ms, _by = _bound(k3_bytes, k3_ops)
+
+    def gathers():
+        for name in hdev.HISTORY_FIELDS:
+            _take(getattr(hist, name), idx[hdev.FIELD_KIND[name]])
+    gather_ms = _time_ms(gathers, device, 5)
+    c_hi, c_lo = _take(hist.counter_hi, idx[0]), _take(hist.counter_lo,
+                                                       idx[0])
+    fold_ms = _time_ms(lambda: hmerge._fold_pair(c_hi, c_lo, sel), device, 3)
+    h_mean, h_weight = _take(hist.h_mean, idx[4]), _take(hist.h_weight,
+                                                         idx[4])
+    bh, w, c = h_mean.shape
+    # one step of the histogram loop: the masked W x C cells compressed
+    compress_ms = _time_ms(lambda: td.compress_rows(
+        h_mean.reshape(bh, w * c),
+        (h_weight * sel[0][None, :, None]).reshape(bh, w * c),
+        compression=hspec.compression, cells_per_k=hspec.cells_per_k,
+        out_c=hspec.centroids, exact_extremes=hspec.exact_extremes),
+        device, 5)
+    # one decimation merge, recomputing tier-1 column 0 from tier-0
+    # columns 0 and 1 (both still resident, so the ring keeps its bytes)
+    roll_ms = _time_ms(lambda: hdev.roll_tiers(
+        hist, 0, 1, hspec.windows, hspec=hspec), device, 5)
+    return dict(
+        ring_bytes=ring_bytes, intervals=HIST_INTERVALS,
+        lines=HIST_INTERVALS * 12_500, steps=agg.steps_total,
+        launches=launches, range_launches=range_launches,
+        ingest_s=ingest_s, flush_ms=float(np.mean(flush_ms)),
+        flush_ms_without_ring=float(np.mean(plain_flush_ms)),
+        flush_ms_each=flush_ms, roll_ms=roll_ms,
+        range_rows={k: len(need[i]) for i, k in enumerate(
+            ("counters", "gauges", "status", "sets", "timers"))},
+        range_steps=len(inputs["steps"]), range_padded_steps=inputs["n_steps"],
+        range_ms=range_ms, range_ms_warm=range_ms_warm,
+        k3_ms=k3_ms, k3_bound_ms=k3_bound_ms,
+        k3_cols=int((inputs["sel"] > 0).any(axis=0).sum()),
+        gather_ms=gather_ms, counter_fold_ms=fold_ms,
+        histo_compress_step_ms=compress_ms,
+        cpu_range_s=cpu_s, range_max_err=range_err)
+
+
 def main() -> int:
     try:
         import torch
@@ -598,6 +974,8 @@ def main() -> int:
     digests = [kernel_digest(device, r) for r in (1 << 14, 1 << 17)]
     for d in digests:
         print("kernel digest_quantiles:", json.dumps(d))
+    merge = kernel_merge_windows(device)
+    print("kernel merge_windows:", json.dumps(merge))
 
     lines = make_lines(np.random.default_rng(0), 200_000)
     main = main_path(device, lines)
@@ -618,6 +996,15 @@ def main() -> int:
     _check(big["launches"]["digest_quantiles"] >= 1,
            "1M: digest_quantiles never launched")
 
+    hist = history_path(device)
+    print("history path (default ring):", json.dumps(hist))
+    _check(all(v >= 1 for v in hist["launches"].values()),
+           f"history: a kernel was never launched {hist['launches']}")
+    print(f"history path on {card}: flush {hist['flush_ms']:.1f} ms with "
+          f"the ring ({hist['flush_ms_without_ring']:.1f} ms without), "
+          f"range batch {hist['range_ms_warm']['total']:.1f} ms, K3 "
+          f"{hist['k3_ms']:.3f} ms")
+
     src = "veneur_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_ingest", route="cuda",
@@ -635,6 +1022,13 @@ def main() -> int:
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
              bound_by=digests[0]["bound_by"], library_ms=None),
+        dict(name="merge_windows", route="cuda",
+             source=src + "merge_windows.cu",
+             replaces="veneur_tpu/ops/pallas_history.py:92",
+             launches=hist["launches"]["merge_windows"],
+             max_abs_err=merge["max_abs_err"], ms=merge["ms"],
+             plain_ms=merge["plain_ms"], bound_ms=merge["bound_ms"],
+             bound_by=merge["bound_by"], library_ms=None),
     ]
     print(f"build {build_s:.1f} s")
     print(card)

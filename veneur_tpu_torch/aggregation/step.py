@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.aggregation.state import DeviceState, TableSpec
+from veneur_tpu_torch.history.device import write_window_core
 from veneur_tpu_torch.ops import cuda_ingest
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td
@@ -371,6 +372,42 @@ def flush_live_in_packed(state: DeviceState, flat: torch.Tensor, *,
         off += n
     out = flush_live_core(state, qs, *idx, spec=spec, want_raw=want_raw)
     return _pack_outputs(out)
+
+
+def flush_live_hist_packed(state: DeviceState, flat: torch.Tensor, hist,
+                           dests, col: int, *, spec: TableSpec, hspec,
+                           n_q: int, buckets: tuple, want_raw: bool = False,
+                           clear: bool = False):
+    """The flush program WITH the history tier's window write: the same
+    flush math and packed output as `flush_live_in_packed`, plus the
+    scatter of the interval's values into ring column `col` of `hist`
+    (in place), from the flush's own device tensors. `dests` holds the
+    per-kind ring rows of this block as host int arrays (bucket-sized,
+    sentinel-padded) and `col` is a host int, so nothing is read back
+    from the device. Returns (packed, hist).
+
+    The write is history/device.write_window_core, the function the
+    replay path runs too, so both store bit-identical window bytes."""
+    qs = flat[:n_q].view(torch.float32)
+    idx, off = [], n_q
+    for n in buckets:
+        idx.append(flat[off:off + n])
+        off += n
+    out = flush_live_core(state, qs, *idx, spec=spec, want_raw=True)
+    vals = {
+        "counter_hi": out["counter_hi"], "counter_lo": out["counter_lo"],
+        "gauge": out["gauge"], "status": out["status"],
+        "hll": out["raw_hll"],
+        "h_mean": out["raw_h_mean"], "h_weight": out["raw_h_weight"],
+        "h_min": out["histo_min"], "h_max": out["histo_max"],
+        "h_count_hi": out["histo_count_hi"],
+        "h_count_lo": out["histo_count_lo"],
+        "h_sum_hi": out["histo_sum_hi"], "h_sum_lo": out["histo_sum_lo"],
+    }
+    write_window_core(hist, vals, dests, col, hspec=hspec, clear=clear)
+    if not want_raw:
+        out = {k: v for k, v in out.items() if not k.startswith("raw_")}
+    return _pack_outputs(out), hist
 
 
 def unpack_flush(packed, shapes: dict) -> dict:

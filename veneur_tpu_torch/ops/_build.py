@@ -110,6 +110,9 @@ def load() -> ctypes.CDLL:
     lib.vt_digest_quantiles.argtypes = [vp, vp, vp, vp, vp, vp,
                                         ll, ctypes.c_int, ctypes.c_int, vp]
     lib.vt_digest_quantiles.restype = ctypes.c_int
+    lib.vt_merge_windows.argtypes = [vp, vp, vp, ll, ll, ll, ll,
+                                     ctypes.c_int, vp]
+    lib.vt_merge_windows.restype = ctypes.c_int
     return lib
 
 

@@ -21,9 +21,10 @@ from veneur_tpu_torch.aggregation.state import (TableSpec, empty_state,
                                                 resolve_device)
 from veneur_tpu_torch.aggregation.step import (
     FLUSH_BLOCK_ROWS, FLUSH_KEY_KIND, batch_sizes, combine_flush_scalars,
-    flush_live_in_packed, flush_live_shapes, live_slots, pack_batch,
-    pack_bucket_chunks, pack_flush_inputs, packed_layout, packed_step_core,
-    pad_bucket, unpack_flush)
+    flush_live_hist_packed, flush_live_in_packed, flush_live_shapes,
+    live_slots, pack_batch, pack_bucket_chunks, pack_flush_inputs,
+    packed_layout, packed_step_core, pad_bucket, unpack_flush)
+from veneur_tpu_torch.history.writer import SENTINEL
 from veneur_tpu_torch.samplers.parser import UDPMetric
 from veneur_tpu_torch.utils.hashing import fnv1a_64, splitmix64
 
@@ -179,12 +180,19 @@ class Aggregator:
         return state, table
 
     def compute_flush(self, state, table, percentiles: List[float],
-                      want_raw: bool = False):
+                      want_raw: bool = False, history=None):
         """Flush math on a detached interval. Output arrays are compact:
         row i pairs with table.get_meta(kind)[i]. Each block of at most
         FLUSH_BLOCK_ROWS rows per kind is one packed input copy, one flush
         and one packed output copy. With want_raw, the live rows'
-        mergeable sketch state comes back too."""
+        mergeable sketch state comes back too.
+
+        With `history` (a history.HistoryWriter on this aggregator's
+        device), each block runs the flush with the ring write fused in
+        (step.flush_live_hist_packed): the interval's values land in
+        their ring column from the flush's own tensors, with the same
+        packed outputs. The writer's plan is committed after the last
+        block, or aborted if any block raises."""
         perc = percentiles or [0.5]
         spec = self.spec
         caps = [spec.counter_capacity, spec.gauge_capacity,
@@ -202,13 +210,36 @@ class Aggregator:
                         for n, cap in zip(lens, caps))
         shapes = flush_live_shapes(spec, *buckets, len(perc),
                                    want_raw=want_raw)
-        packs = []
-        for i in range(n_blocks):
-            flat = torch.from_numpy(pack_flush_inputs(
+        def flat_of(i):
+            return torch.from_numpy(pack_flush_inputs(
                 perc, pack_bucket_chunks(slots, buckets, i))).to(self.device)
-            packs.append(flush_live_in_packed(
-                state, flat, spec=spec, n_q=len(perc), buckets=buckets,
-                want_raw=want_raw))
+
+        if history is not None:
+            if history.device != self.device:
+                raise ValueError(f"history ring on {history.device}, "
+                                 f"aggregator on {self.device}")
+            plan = history.plan_flush(table)
+            hist = history.begin_flush(plan)
+            try:
+                packs = []
+                for i in range(n_blocks):
+                    p, hist = flush_live_hist_packed(
+                        state, flat_of(i), hist,
+                        pack_bucket_chunks(plan.dests, buckets, i,
+                                           fill=SENTINEL),
+                        plan.col, spec=spec, hspec=history.spec,
+                        n_q=len(perc), buckets=buckets, want_raw=want_raw,
+                        clear=(i == 0))
+                    packs.append(p)
+            except BaseException:
+                history.abort_flush()
+                raise
+            history.commit_flush(plan, hist)
+        else:
+            packs = [flush_live_in_packed(state, flat_of(i), spec=spec,
+                                          n_q=len(perc), buckets=buckets,
+                                          want_raw=want_raw)
+                     for i in range(n_blocks)]
         pieces = [unpack_flush(p.cpu().numpy(), shapes) for p in packs]
         out = {}
         for key, kind_i in ((k, FLUSH_KEY_KIND[k]) for k in pieces[0]):
