@@ -11,17 +11,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ptxas's register, shared-memory and spill lines;
 3. kernels, at the shapes the main path gives them:
    - fused ingest (K1) against its plain version run on a CPU copy of the
-     same state and streams: byte-exact on all 14 state leaves;
+     same state and streams: byte-exact on all 14 state leaves, on the
+     main path's Zipf batch and on a hot batch (one key owns the whole
+     histogram lane, one the whole set lane), each with its longest runs;
    - digest quantiles (K2) against its plain version over 16384 and
-     131072 rows x 472 cells, Q=4, empty and duplicate-key rows included:
-     within rtol/atol 2e-5;
+     131072 rows x 472 cells and over the range batch's 1024 rows x 32
+     cells, Q=4, empty and duplicate-key rows included: within rtol/atol
+     2e-5;
    - masked window merge (K3) against its plain version on the same
      card tensors over 256 set rows x 360 ring columns x 3072 words
      (p=14) and 32 steps (tier-0 columns, decimated-tier covers, every
      column, none): byte-exact;
    each with its time, the plain version's time and its bound (the least
    time the card could take: bytes over 3.35 TB/s or operations over
-   67 TFLOP/s of fp32, whichever is larger);
+   67 TFLOP/s of fp32, whichever is larger; for K1 also its longest
+   ordered f32 chain at 4 cycles an add over the maximum SM clock);
 4. the main path at the server's default widths: ~200k DogStatsD lines
    parsed, keyed and ingested by Aggregator(device="cuda"), a flush
    with [0.5, 0.9, 0.99] and generate_intermetrics; counters exact
@@ -91,6 +95,31 @@ def _time_ms(fn, device, reps: int, warmup: int = 2) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, clock_hz: float, warmup: int = 2) -> float:
+    """Device time of fn, for a kernel whose launch costs the host more
+    than the card's run: the card first spins (torch.cuda._sleep) for
+    40 ms at its maximum clock, longer at a lower one, while the host
+    queues every launch between two CUDA events, so the events see the
+    launches back to back and not the host's pace."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(clock_hz * 0.04))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    end.synchronize()
+    _check(queued_s < 0.04, f"queueing {reps} launches took {queued_s:.3f} "
+           "s, longer than the card's spin")
     return start.elapsed_time(end) / reps
 
 
@@ -219,33 +248,38 @@ def _max_run(slot) -> int:
     return int(torch.unique_consecutive(s, return_counts=True)[1].max())
 
 
-def kernel_ingest(device) -> dict:
-    """K1 at the default table and batch widths, on a warm state."""
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    _check(res.returncode == 0, f"nvidia-smi: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _hot_batch(rng, spec, bspec):
+    """The main path's batch with one timer key owning the whole
+    histogram lane and one set key the whole set lane."""
+    return _main_path_batch(rng, spec, bspec)._replace(
+        histo_slot=np.full(bspec.histo, 17, np.int32),
+        set_slot=np.full(bspec.set, 5, np.int32))
+
+
+def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
+    """K1 on one batch: byte-exact against the plain version on a CPU copy
+    of the same state and streams, then timed: `ms` on the card alone
+    (`_device_ms`), `wrapper_ms` at the host's pace (the wrapper's checks
+    and the launch, as the main path calls it). The bound
+    is the largest of three times: bytes over HBM, fp32 operations over
+    the fp32 peak, and the longest ordered f32 chain (the longest counter
+    or histogram slot run) at 4 cycles a dependent add over the maximum
+    SM clock; a chain is dependent operations, so bound_by names it
+    "operations"."""
     import torch
     from veneur_tpu_torch import convert
-    from veneur_tpu_torch.aggregation.host import BatchSpec
-    from veneur_tpu_torch.aggregation.state import empty_state
-    from veneur_tpu_torch.aggregation.step import (
-        Batch, batch_sizes, build_streams, pack_batch, packed_step_core)
+    from veneur_tpu_torch.aggregation.step import build_streams
     from veneur_tpu_torch.ops import cuda_ingest
 
-    spec, bspec = _default_spec(), BatchSpec()
-    rng = np.random.default_rng(1)
-    state = empty_state(spec, device)
-    flat = None
-    for step in range(1, 9):               # warm digests, one compaction
-        batch = _main_path_batch(rng, spec, bspec)
-        flat = torch.from_numpy(pack_batch(batch, step == 8)).to(device)
-        packed_step_core(state, flat, spec=spec, sizes=batch_sizes(batch),
-                         do_compact=step == 8)
-    sizes = batch_sizes(batch)
-    step_ms = _time_ms(lambda: packed_step_core(
-        state, flat, spec=spec, sizes=sizes, do_compact=False), device, 10)
-    compact_ms = _time_ms(lambda: packed_step_core(
-        state, flat, spec=spec, sizes=sizes, do_compact=True), device, 3)
-
-    batch = Batch(*(None if a is None else torch.from_numpy(a).to(device)
-                    for a in _main_path_batch(rng, spec, bspec)))
     streams = build_streams(state, batch, spec)
     cpu_state = convert.state_from_numpy(convert.state_to_numpy(state), "cpu")
     cpu_streams = cuda_ingest.IngestStreams(*(t.cpu() for t in streams))
@@ -263,19 +297,77 @@ def kernel_ingest(device) -> dict:
             d[got[name] == want[name]] = 0.0
             err = max(err, float(np.nanmax(d, initial=0.0)))
 
-    ms = _time_ms(lambda: cuda_ingest.fused_ingest(state, streams, spec),
-                  device, 50)
+    def run():
+        cuda_ingest.fused_ingest(state, streams, spec)
+    ms = _device_ms(run, 50, clock_hz)
+    wrapper_ms = _time_ms(run, device, 50)
     plain_ms = _time_ms(lambda: cuda_ingest.fused_ingest_plain(
-        state, streams, spec), device, 2, warmup=1)
+        state, streams, spec), device, plain_reps, warmup=1)
     nbytes, ops = _ingest_work(streams, spec)
+    runs = {"counter": _max_run(streams.c_slot),
+            "histogram": _max_run(streams.h_slot),
+            "set": _max_run(streams.s_slot)}
+    chain_ms = max(runs["counter"], runs["histogram"]) * 4 / clock_hz * 1e3
+    bytes_ms, ops_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
+                        ops / FP32_OPS_PER_S * 1e3)
     bound_ms, bound_by = _bound(nbytes, ops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+    if chain_ms > bound_ms:
+        bound_ms, bound_by = chain_ms, "operations"
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                chain_ms=chain_ms, bytes=nbytes, ops=ops,
                 rows=sum(s.numel() for s in (streams.c_slot, streams.g_slot,
                                               streams.st_slot, streams.s_slot,
                                               streams.h_slot)),
-                max_run=_max_run(streams.h_slot), step_ms=step_ms,
-                compact_ms=compact_ms)
+                max_run=runs)
+
+
+def warm_ingest_state(device):
+    """The default table after 8 of the main path's batches (digests warm,
+    one compaction): (spec, bspec, rng, state, last batch, its packed
+    buffer)."""
+    import torch
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.aggregation.state import empty_state
+    from veneur_tpu_torch.aggregation.step import (
+        batch_sizes, pack_batch, packed_step_core)
+
+    spec, bspec = _default_spec(), BatchSpec()
+    rng = np.random.default_rng(1)
+    state = empty_state(spec, device)
+    for step in range(1, 9):
+        batch = _main_path_batch(rng, spec, bspec)
+        flat = torch.from_numpy(pack_batch(batch, step == 8)).to(device)
+        packed_step_core(state, flat, spec=spec, sizes=batch_sizes(batch),
+                         do_compact=step == 8)
+    return spec, bspec, rng, state, batch, flat
+
+
+def kernel_ingest(device, clock_hz) -> dict:
+    """K1 at the default table and batch widths on a warm state: the main
+    path's Zipf batch, then the hot batch (one key per histogram and set
+    lane)."""
+    import torch
+    from veneur_tpu_torch.aggregation.step import (
+        Batch, batch_sizes, packed_step_core)
+
+    spec, bspec, rng, state, batch, flat = warm_ingest_state(device)
+    sizes = batch_sizes(batch)
+    step_ms = _time_ms(lambda: packed_step_core(
+        state, flat, spec=spec, sizes=sizes, do_compact=False), device, 10)
+    compact_ms = _time_ms(lambda: packed_step_core(
+        state, flat, spec=spec, sizes=sizes, do_compact=True), device, 3)
+
+    def on_card(b):
+        return Batch(*(None if a is None else torch.from_numpy(a).to(device)
+                       for a in b))
+    out = _ingest_case(state, on_card(_main_path_batch(rng, spec, bspec)),
+                       spec, device, clock_hz, plain_reps=2)
+    out["hot"] = _ingest_case(state, on_card(_hot_batch(rng, spec, bspec)),
+                              spec, device, clock_hz, plain_reps=1)
+    out.update(step_ms=step_ms, compact_ms=compact_ms)
+    return out
 
 
 def _digest_rows(rng, r, c):
@@ -292,12 +384,13 @@ def _digest_rows(rng, r, c):
     return mean, weight, mn.astype(np.float32), mx.astype(np.float32)
 
 
-def kernel_digest(device, rows: int) -> dict:
-    """K2 on `rows` digest rows of the production width, Q=4."""
+def kernel_digest(device, rows: int, c: int | None = None) -> dict:
+    """K2 on `rows` digest rows of `c` cells (the live table's 472 unless
+    given), Q=4."""
     import torch
     from veneur_tpu_torch.ops import cuda_digest
 
-    c = _default_spec().total_cells
+    c = c or _default_spec().total_cells
     rng = np.random.default_rng(rows)
     qs = np.asarray([0.5, 0.9, 0.99, 0.5], np.float32)   # + median column
     args = [torch.from_numpy(a).to(device)
@@ -969,9 +1062,13 @@ def main() -> int:
     print("card:", card)
     build_s = build_kernels()
 
-    ingest = kernel_ingest(device)
-    print("kernel fused_ingest:", json.dumps(ingest))
+    clock_hz = sm_clock_hz()
+    ingest = kernel_ingest(device, clock_hz)
+    print(f"kernel fused_ingest (max SM clock {clock_hz / 1e6:.0f} MHz):",
+          json.dumps(ingest))
     digests = [kernel_digest(device, r) for r in (1 << 14, 1 << 17)]
+    # the range batch's shape: 1,024 timers x 32 centroids, per step
+    digests.append(kernel_digest(device, 1024, 32))
     for d in digests:
         print("kernel digest_quantiles:", json.dumps(d))
     merge = kernel_merge_windows(device)

@@ -10,7 +10,9 @@ on a machine with an H100:
 machine has no JAX.)
 
 - fused ingest (K1): byte-exact on all 14 state leaves against the plain
-  version run on a CPU copy of the same streams;
+  version run on a CPU copy of the same streams, on Zipf batches, on
+  batches where one slot takes a whole lane, and on hand-made streams
+  with runs of 4,096+ entries;
 - digest quantiles (K2): within rtol/atol 2e-5 of the plain version;
 - masked window merge (K3): byte-exact against the plain version;
 - the whole slice on the card against the same slice on the CPU;
@@ -67,14 +69,69 @@ def _batch(rng, spec, b=2048):
         histo_wt=rng.integers(0, 3, b).astype(np.float32))
 
 
-def test_fused_ingest_kernel_byte_exact(cuda):
+def _hot_batch(rng, spec, b=8192):
+    """One histogram slot takes the whole histogram lane and one set slot
+    the whole set lane."""
+    return _batch(rng, spec, b)._replace(
+        histo_slot=np.full(b, 7, np.int32), set_slot=np.full(b, 9, np.int32))
+
+
+def _hand_streams(rng, spec):
+    """Streams made by hand, as build_streams would sort them: a 5,000-entry
+    counter run, a 4,096-entry gauge run, a 4,500-entry histogram run whose
+    cells run backwards and interleave from both ends (with zero-weight
+    entries), a 300-entry run on one 16-register group whose fields
+    straddle words, and BIG tails."""
+    big = np.int32(1 << 30)
+
+    def lane(runs, tail):
+        return np.concatenate([np.full(n, s, np.int32) for s, n in runs]
+                              + [np.full(tail, big, np.int32)])
+    c_slot = lane([(0, 3), (1, 5000), (2, 7), (40, 1)], 9)
+    g_slot = lane([(3, 4096), (4, 2)], 5)
+    st_slot = lane([(1, 33), (2, 1)], 3)
+    s_slot = lane([(2, 300), (3, 4100), (8, 2)], 6)
+    s_reg = rng.integers(0, spec.registers, s_slot.size).astype(np.int32)
+    s_reg[:300] = rng.choice([0, 5, 10, 15], 300)        # group 0 of slot 2
+    s_reg[300:400] = 16 * 17 + 5                          # one register
+    s_rho = rng.integers(0, 62, s_slot.size).astype(np.int32)
+    h_slot = lane([(1, 4500), (5, 40), (6, 1)], 11)
+    n = h_slot.size
+    cells = spec.total_cells
+    h_cell = np.empty(n, np.int32)
+    k = np.arange(4500)
+    h_cell[:4500] = np.where(k % 2 == 0, (4499 - k) % (cells - 40) + 20,
+                             cells - 1 - k % 16)          # down, and temp
+    h_cell[4500:] = rng.integers(0, cells, n - 4500)
+    h_v = rng.lognormal(2.0, 1.0, n).astype(np.float32)
+    h_w = rng.integers(0, 3, n).astype(np.float32)
+    h_w[::13] = 0.0
+    h_rcp = np.where(h_w > 0, h_w / h_v, 0.0).astype(np.float32)
+    h_tadd = (h_cell >= spec.centroids).astype(np.int32)
+    arrays = (c_slot, rng.uniform(-3, 5, c_slot.size), g_slot,
+              rng.normal(size=g_slot.size), st_slot,
+              rng.integers(0, 4, st_slot.size), s_slot, s_reg, s_rho,
+              h_slot, h_cell, h_v, h_w, h_w * h_v, h_rcp, h_tadd)
+    return cuda_ingest.IngestStreams(*(
+        torch.from_numpy(np.ascontiguousarray(
+            a, np.int32 if name in cuda_ingest._STREAM_I32 else np.float32))
+        for name, a in zip(cuda_ingest.IngestStreams._fields, arrays)))
+
+
+@pytest.mark.parametrize("case", ["zipf", "hot", "hand"])
+def test_fused_ingest_kernel_byte_exact(cuda, case):
     rng = np.random.default_rng(0)
     gpu = tstate.empty_state(SPEC, cuda)
     for _ in range(4):
-        batch = tstep.Batch(*(None if a is None else
-                              torch.from_numpy(a).to(cuda)
-                              for a in _batch(rng, SPEC)))
-        streams = tstep.build_streams(gpu, batch, SPEC)
+        if case == "hand":
+            streams = cuda_ingest.IngestStreams(
+                *(t.to(cuda) for t in _hand_streams(rng, SPEC)))
+        else:
+            make = _batch if case == "zipf" else _hot_batch
+            batch = tstep.Batch(*(None if a is None else
+                                  torch.from_numpy(a).to(cuda)
+                                  for a in make(rng, SPEC)))
+            streams = tstep.build_streams(gpu, batch, SPEC)
         cpu = convert.state_from_numpy(convert.state_to_numpy(gpu), "cpu")
         before = cuda_ingest.launches
         cuda_ingest.fused_ingest(gpu, streams, SPEC)

@@ -4,7 +4,8 @@
   JAX prologue's own sorted streams and cell plan, against the Pallas
   kernel `fused_ingest_core` in interpret mode: byte-exact on all 14 state
   leaves, duplicate slots, overflow and negative slots, word-straddling
-  HLL fields and multi-block widths included.
+  HLL fields, multi-block widths and a hot run (one slot owning the
+  whole histogram and set lanes) included.
 - The port's own prologue (`build_streams`) against the JAX one.
 - `packed_layout` / `pack_batch` / `unpack_batch`: identical bytes.
 - `packed_step_core` with in-band compaction against the JAX
@@ -118,14 +119,29 @@ def _warm_state(jspec, rng, steps=2):
     return st
 
 
-@pytest.mark.parametrize("kw", [SMALL, WIDE], ids=["small", "multi_block"])
-def test_plain_kernel_matches_pallas_interpret_byte_exact(kw):
+def _hot_batch(rng, spec, b=128):
+    """One histogram slot takes the whole lane (on a warm state its temp
+    and k-cells interleave) and one set slot the whole set lane, over
+    every register, the straddling fields (register % 16 in {5, 10})
+    included."""
+    batch = _rand_batch(rng, spec, b=b)
+    reg = rng.integers(0, spec.registers, b).astype(np.int32)
+    reg[::4] = 16 * rng.integers(0, spec.registers // 16, b // 4) + 5
+    reg[1::4] = 16 * rng.integers(0, spec.registers // 16, b // 4) + 10
+    return batch._replace(histo_slot=np.full(b, 3, np.int32),
+                          set_slot=np.full(b, 5, np.int32), set_reg=reg)
+
+
+@pytest.mark.parametrize("kw,hot", [(SMALL, False), (WIDE, False),
+                                    (SMALL, True)],
+                         ids=["small", "multi_block", "hot"])
+def test_plain_kernel_matches_pallas_interpret_byte_exact(kw, hot):
     jspec, tspec = _specs(kw)
     rng = np.random.default_rng(0)
     jst = _warm_state(jspec, rng)
     tst = convert.state_from_numpy(_np_state(jst), "cpu")
     for _ in range(3):
-        batch = _rand_batch(rng, jspec, b=128)
+        batch = (_hot_batch if hot else _rand_batch)(rng, jspec, b=128)
         streams = _jax_streams(jst, batch, jspec)
         jst = jpi.fused_ingest_core(jst, batch, spec=jspec, interpret=True)
         cuda_ingest.fused_ingest(tst, streams, tspec)

@@ -8,14 +8,17 @@ and the digest cell insert with its scalar accumulators. It replaces the
 Pallas kernel veneur_tpu/ops/pallas_ingest.py fused_ingest_core; the CUDA
 source is csrc/fused_ingest.cu.
 
-Duplicates of a slot are applied one after another in stream order,
+Duplicates of a target are applied one after another in stream order,
 starting from the resident value -- the order of the JAX scatter chain,
 which makes every leaf byte-identical to it. The plain version keeps
 that order with a loop over rank within run: at rank r each slot appears
 at most once, so one vectorised scatter per rank is exact.
 
 For CPU tensors the wrapper runs `fused_ingest_plain`; for CUDA tensors it
-launches the kernel or raises. `launches` counts kernel launches only.
+launches the kernel, or raises. The kernel needs no plan beyond the
+streams: it groups the set lane by 16-register group and the histogram
+lane by (slot, cell) itself, on the card. `launches` counts kernel
+launches only.
 """
 
 from __future__ import annotations
@@ -166,6 +169,12 @@ def _validate(state, st: IngestStreams, spec, device):
                              f"{t.dtype}{list(t.shape)}")
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"state.{name}: must be contiguous on {device}")
+    for name, rows, width in (("hll", spec.set_capacity, spec.hll_words),
+                              ("h_w", spec.histo_capacity,
+                               spec.total_cells)):
+        if rows * width >= 1 << 31:
+            raise ValueError(f"state.{name}: the kernel indexes it with "
+                             f"32-bit offsets; {rows} x {width} is too big")
     for lane in _LANES:
         n = getattr(st, lane[0]).shape[0]
         for name in lane:
@@ -174,9 +183,10 @@ def _validate(state, st: IngestStreams, spec, device):
             if t.dtype != want or tuple(t.shape) != (n,):
                 raise ValueError(f"stream {name}: want {want}[{n}], got "
                                  f"{t.dtype}{list(t.shape)}")
-            if t.device != device or not t.is_contiguous():
-                raise ValueError(f"stream {name}: must be contiguous on "
-                                 f"{device}")
+            if (t.device != device or not t.is_contiguous()
+                    or t.data_ptr() % 16):
+                raise ValueError(f"stream {name}: must be contiguous and "
+                                 f"16-byte aligned on {device}")
 
 
 def fused_ingest(state, st: IngestStreams, spec) -> None:
