@@ -22,8 +22,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      card tensors over 256 set rows x 360 ring columns x 3072 words
      (p=14) and 32 steps (tier-0 columns, decimated-tier covers, every
      column, none): byte-exact;
-   each with its time, the plain version's time and its bound (the least
-   time the card could take: bytes over 3.35 TB/s or operations over
+   each with its time (CUDA events over launches at the host's pace; K1
+   also on the card alone), the plain version's time and its bound (the
+   least time the card could take: bytes over 3.35 TB/s or operations over
    67 TFLOP/s of fp32, whichever is larger; for K1 also its longest
    ordered f32 chain at 4 cycles an add over the maximum SM clock);
 4. the main path at the server's default widths: ~200k DogStatsD lines
@@ -267,9 +268,11 @@ def _hot_batch(rng, spec, bspec):
 
 def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
     """K1 on one batch: byte-exact against the plain version on a CPU copy
-    of the same state and streams, then timed: `ms` on the card alone
-    (`_device_ms`), `wrapper_ms` at the host's pace (the wrapper's checks
-    and the launch, as the main path calls it). The bound
+    of the same state and streams, then timed three ways: `ms` with CUDA
+    events over launches at the host's pace (`_time_ms`, as K2 and K3 are
+    timed: the wrapper's checks and the launch, as the main path calls
+    it), `device_ms` on the card alone (`_device_ms`), and `checks_ms`,
+    the host time of the wrapper's argument checks alone. The bound
     is the largest of three times: bytes over HBM, fp32 operations over
     the fp32 peak, and the longest ordered f32 chain (the longest counter
     or histogram slot run) at 4 cycles a dependent add over the maximum
@@ -299,8 +302,13 @@ def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
 
     def run():
         cuda_ingest.fused_ingest(state, streams, spec)
-    ms = _device_ms(run, 50, clock_hz)
-    wrapper_ms = _time_ms(run, device, 50)
+    ms = _time_ms(run, device, 50)
+    device_ms = _device_ms(run, 50, clock_hz)
+    on = state.counter_acc.device       # cuda:0, as the wrapper sees it
+    t0 = time.perf_counter()
+    for _ in range(200):
+        cuda_ingest._validate(state, streams, spec, on)
+    checks_ms = (time.perf_counter() - t0) * 1e3 / 200
     plain_ms = _time_ms(lambda: cuda_ingest.fused_ingest_plain(
         state, streams, spec), device, plain_reps, warmup=1)
     nbytes, ops = _ingest_work(streams, spec)
@@ -313,8 +321,8 @@ def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
     bound_ms, bound_by = _bound(nbytes, ops)
     if chain_ms > bound_ms:
         bound_ms, bound_by = chain_ms, "operations"
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                checks_ms=checks_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
                 chain_ms=chain_ms, bytes=nbytes, ops=ops,
                 rows=sum(s.numel() for s in (streams.c_slot, streams.g_slot,

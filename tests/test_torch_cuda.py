@@ -12,7 +12,9 @@ machine has no JAX.)
 - fused ingest (K1): byte-exact on all 14 state leaves against the plain
   version run on a CPU copy of the same streams, on Zipf batches, on
   batches where one slot takes a whole lane, and on hand-made streams
-  with runs of 4,096+ entries;
+  with runs of 4,096+ entries; at the widest rows it stages in shared
+  memory; and it refuses, before any launch, streams that are not
+  16-byte aligned and tables past 32-bit offsets;
 - digest quantiles (K2): within rtol/atol 2e-5 of the plain version;
 - masked window merge (K3): byte-exact against the plain version;
 - the whole slice on the card against the same slice on the CPU;
@@ -31,7 +33,8 @@ from veneur_tpu_torch.aggregation import step as tstep
 from veneur_tpu_torch.aggregation.host import BatchSpec
 from veneur_tpu_torch.history import HistorySpec, HistoryWriter
 from veneur_tpu_torch.history import merge as hmerge
-from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest, hll
+from veneur_tpu_torch.ops import (_build, cuda_digest, cuda_history,
+                                  cuda_ingest, hll)
 from veneur_tpu_torch.samplers.parser import ParseError, parse_metric
 from veneur_tpu_torch.server.aggregator import Aggregator
 from veneur_tpu_torch.server.flusher import generate_intermetrics
@@ -143,6 +146,71 @@ def test_fused_ingest_kernel_byte_exact(cuda, case):
         got, want = convert.state_to_numpy(gpu), convert.state_to_numpy(cpu)
         for name in cuda_ingest.STATE_LEAVES:
             assert got[name].tobytes() == want[name].tobytes(), name
+
+
+def test_fused_ingest_kernel_widest_spec_byte_exact(cuda):
+    """The widest rows the kernel stages in shared memory (hll_precision
+    15, 3,624 digest cells: 232,128 bytes a block) on the hot batch; the
+    wrapper's mirror of the kernel's shared-memory need agrees with the
+    kernel's own."""
+    spec = tstate.TableSpec(counter_capacity=1 << 12, gauge_capacity=256,
+                            status_capacity=64, set_capacity=64,
+                            histo_capacity=256, hll_precision=15,
+                            compression=2200.0)
+    lib = _build.load()
+    for words, cells in ((3072, 472), (spec.hll_words, spec.total_cells),
+                         (12288, 472), (3072, 3631), (192, 40)):
+        assert lib.vt_fused_ingest_smem(words, cells) == \
+            cuda_ingest.shared_bytes(words, cells), (words, cells)
+    assert cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells) == \
+        232_128
+    rng = np.random.default_rng(5)
+    gpu = tstate.empty_state(spec, cuda)
+    for _ in range(2):
+        batch = tstep.Batch(*(None if a is None else
+                              torch.from_numpy(a).to(cuda)
+                              for a in _hot_batch(rng, spec)))
+        streams = tstep.build_streams(gpu, batch, spec)
+        cpu = convert.state_from_numpy(convert.state_to_numpy(gpu), "cpu")
+        before = cuda_ingest.launches
+        cuda_ingest.fused_ingest(gpu, streams, spec)
+        torch.cuda.synchronize()
+        assert cuda_ingest.launches == before + 1
+        cuda_ingest.fused_ingest(
+            cpu, cuda_ingest.IngestStreams(*(t.cpu() for t in streams)),
+            spec)
+        got, want = convert.state_to_numpy(gpu), convert.state_to_numpy(cpu)
+        for name in cuda_ingest.STATE_LEAVES:
+            assert got[name].tobytes() == want[name].tobytes(), name
+
+
+@pytest.mark.parametrize("case", ["misaligned_stream", "offsets"])
+def test_fused_ingest_refuses_what_the_kernel_cannot_index(cuda, case):
+    """A stream that is not 16-byte aligned (a view at offset 1), and a
+    set table whose rows x words reach 2^31 (2^20 rows of 3,072 words),
+    raise ValueError before any launch."""
+    rng = np.random.default_rng(6)
+    streams = cuda_ingest.IngestStreams(
+        *(t.to(cuda) for t in _hand_streams(rng, SPEC)))
+    spec = SPEC
+    if case == "misaligned_stream":
+        buf = torch.empty(streams.c_inc.numel() + 1, device=cuda)
+        view = buf[1:]
+        view.copy_(streams.c_inc)
+        streams = streams._replace(c_inc=view)
+        match = "16-byte aligned"
+    else:
+        spec = tstate.TableSpec(counter_capacity=SPEC.counter_capacity,
+                                gauge_capacity=SPEC.gauge_capacity,
+                                status_capacity=SPEC.status_capacity,
+                                set_capacity=1 << 20,
+                                histo_capacity=SPEC.histo_capacity)
+        match = "32-bit offsets"
+    gpu = tstate.empty_state(spec, cuda)
+    before = cuda_ingest.launches
+    with pytest.raises(ValueError, match=match):
+        cuda_ingest.fused_ingest(gpu, streams, spec)
+    assert cuda_ingest.launches == before
 
 
 def test_digest_quantiles_kernel_matches_plain(cuda):

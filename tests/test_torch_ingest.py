@@ -180,6 +180,31 @@ def test_plain_kernel_duplicate_slot_ordering():
     assert jhll.unpack_registers_np(got["hll"][:1], 8)[0, 5] == 7
 
 
+@pytest.mark.parametrize("kw,refused", [
+    ({}, None),
+    (dict(hll_precision=15, compression=2200.0), None),
+    (dict(hll_precision=16), "shared memory"),
+    (dict(compression=2400.0), "shared memory"),
+    (dict(set_capacity=1 << 20), "32-bit offsets"),
+], ids=["default", "widest", "p16", "wide_digest", "offsets"])
+def test_kernel_refuses_widths_it_cannot_take(kw, refused):
+    """The CUDA branch checks the spec before it launches: a set row
+    (hll_precision 16) or a digest row (3,928 cells at compression 2,400)
+    too wide to stage in a block's shared memory, and targets past 32-bit
+    offsets, raise ValueError; the default widths and the widest that fit
+    pass."""
+    spec = tstate_mod.TableSpec(**kw)
+    need = cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells)
+    if refused is None:
+        cuda_ingest._check_spec(spec)
+        assert need <= cuda_ingest.SMEM_PER_BLOCK
+        if not kw:
+            assert need == 83_200          # 2 blocks an SM at the defaults
+        return
+    with pytest.raises(ValueError, match=refused):
+        cuda_ingest._check_spec(spec)
+
+
 def test_port_prologue_matches_jax_prologue():
     """build_streams (torch) against the Pallas prologue (JAX) on the
     same state: every lane byte-identical, cells included (the batch is

@@ -34,8 +34,8 @@
 //     which finds its end by a galloping search of the sorted slots and
 //     walks it in 256-entry steps, copied into shared memory with 16-byte
 //     cp.async several steps ahead of the fold;
-//   - a long counter run folds by warp broadcast: every lane holds the
-//     chain and lane 0 stores once;
+//   - a long counter run: lane 0 folds each staged step in stream order
+//     and stores once;
 //   - a long histogram slot run: lane L folds row L of each step in stream
 //     order (count, sum, reciprocal, min, max), four entries a shared-
 //     memory load, so the five chains advance side by side;
@@ -71,12 +71,11 @@ constexpr int kWarps = kThreads / 32;
 // counter, gauge, status, set, histogram slots, histogram cells
 constexpr int kLanes = 6;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kUnroll = 4;            // entries per lane per step of a
-constexpr int kStep = 32 * kUnroll;   // long counter run
-constexpr int kSlotUnroll = 8;        // the same for the staged walks
-constexpr int kSlotStep = 32 * kSlotUnroll;
+constexpr int kSlotUnroll = 8;        // entries per lane per step of a
+constexpr int kSlotStep = 32 * kSlotUnroll;  // long run's staged walk
 constexpr int kStages = 2;            // steps of a walk in flight
 constexpr int kCellStages = 4;        // the cell walk's: two windows of two
+constexpr int kMaxDevices = 64;       // devices whose grant is remembered
 constexpr int kRow = kSlotStep + 4;   // a staged stream's row: 16-byte
                                       // aligned, and rows 0-4 start in
                                       // five different banks
@@ -262,10 +261,14 @@ __device__ __forceinline__ long long run_end(const int32_t* __restrict__ slot,
 
 // Shared memory per warp, in floats (multiples of 4, so every stage is
 // 16-byte aligned), of each long walk: the slot chain's stages of five
-// streams and two derived rows; the cell walk's row (h_w, h_wm), an owner
-// tag per cell, stages of three streams and its segment starts; the set
-// walk's 64 staging words, stages of two streams, its row and an owner tag
-// per 16-register group.
+// streams and two derived rows (the counter walk's one stream fits in
+// them); the cell walk's row (h_w, h_wm), an owner tag per cell, stages
+// of three streams and its segment starts; the set walk's 64 staging
+// words, stages of two streams, its row and an owner tag per 16-register
+// group. Every warp reserves the largest, so a block needs
+// block_smem_bytes: 83 KB at the default widths (p = 14, 472 cells), which
+// allows 2 blocks an SM; past the 227 KB a block may have (p = 16, or
+// more than 3,630 cells) the launch is refused.
 __host__ __device__ inline long long up4(long long x) { return (x + 3) & ~3LL; }
 __host__ __device__ inline long long slot_warp_floats() {
   return 7 * kStages * kRow;
@@ -276,62 +279,44 @@ __host__ __device__ inline long long cell_warp_floats(long long cells) {
 __host__ __device__ inline long long set_warp_floats(long long words) {
   return 64 + 2 * kStages * kRow + up4(words) + up4(words / 3);
 }
+inline long long warp_smem_floats(long long words, long long cells) {
+  long long wf = slot_warp_floats();
+  if (cell_warp_floats(cells) > wf) wf = cell_warp_floats(cells);
+  if (set_warp_floats(words) > wf) wf = set_warp_floats(words);
+  return wf;
+}
+inline long long block_smem_bytes(long long words, long long cells) {
+  return warp_smem_floats(words, cells) * kWarps * (long long)sizeof(float);
+}
 
 // -- counter: ordered sums per slot -------------------------------------------
 
-struct SumFeed {
-  float x[kUnroll];
-  bool in[kUnroll];
-};
-
-__device__ __forceinline__ SumFeed feed_sum(const int32_t* __restrict__ slot,
-                                            const float* __restrict__ val,
-                                            long long b, long long n,
-                                            int32_t s, int lane) {
-  SumFeed f;
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const long long j = b + u * 32 + lane;
-    const long long jc = j < n ? j : n - 1;
-    f.in[u] = j < n && slot[jc] == s;
-    f.x[u] = val[jc];
+// The warp walks slot s's run [start, end) 256 entries a step, staged in
+// shared memory as the slot chains are; lane 0 adds them in stream order.
+__device__ __forceinline__ void warp_counter_run(const IngestArgs& a,
+                                                 float* sm, long long start,
+                                                 long long n, int32_t s,
+                                                 int lane) {
+  const void* src[1] = {a.c_inc};
+  float acc = lane == 0 ? a.counter[s] : 0.f;
+  const long long first = start & ~3LL;  // steps start 16-byte aligned
+  stage_first<1>(sm, src, first, n, lane);
+  const long long end = run_end(a.c_slot, start, n, s, lane);
+  for (int step = 0;; ++step) {
+    const long long b = first + (long long)step * kSlotStep;
+    const float* buf = stage_next<1>(sm, src, first, step, n, lane);
+    const int e0 = start > b ? (int)(start - b) : 0;
+    const int e1 = end - b < kSlotStep ? (int)(end - b) : kSlotStep;
+    if (lane == 0)
+      for (int t = e0; t < e1; ++t) acc += buf[t];
+    __syncwarp();
+    if (end <= b + kSlotStep) break;
   }
-  return f;
+  cp_async_wait<0>();
+  if (lane == 0) a.counter[s] = acc;
 }
 
-// The warp walks slot s's run from `start` to its end, adding each value
-// in stream order into *target.
-__device__ __noinline__ void warp_run_sum(const int32_t* __restrict__ slot,
-                                          const float* __restrict__ val,
-                                          float* __restrict__ target,
-                                          long long start, long long n,
-                                          int32_t s, int lane) {
-  float acc = *target;
-  SumFeed cur = feed_sum(slot, val, start, n, s, lane);
-  for (long long b = start;; b += kStep) {
-    int cnt[kUnroll];
-    int total = 0;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      cnt[u] = __popc(__ballot_sync(kFull, cur.in[u]));
-      total += cnt[u];
-    }
-    const SumFeed nxt = feed_sum(slot, val, b + kStep, n, s, lane);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int t = 0; t < 32; ++t) {
-        const float y = __shfl_sync(kFull, cur.x[u], t);
-        if (t < cnt[u]) acc += y;
-      }
-    }
-    if (total < kStep) break;
-    cur = nxt;
-  }
-  if (lane == 0) *target = acc;
-}
-
-__device__ __forceinline__ void counter_lane(const IngestArgs& a,
+__device__ __forceinline__ void counter_lane(const IngestArgs& a, float* sm,
                                              long long base, int lane) {
   const long long n = a.n[0];
   const Runs r = scan_runs(a.c_slot, base, n, lane);
@@ -342,11 +327,9 @@ __device__ __forceinline__ void counter_lane(const IngestArgs& a,
     acc = fold_short(acc, x, lane, r.len);
     if (r.len) a.counter[r.key] = acc;
   }
-  if (r.long_lane >= 0) {
-    const int32_t s = __shfl_sync(kFull, r.key, r.long_lane);
-    warp_run_sum(a.c_slot, a.c_inc, a.counter + s, base + r.long_lane, n, s,
-                 lane);
-  }
+  if (r.long_lane >= 0)
+    warp_counter_run(a, sm, base + r.long_lane, n,
+                     __shfl_sync(kFull, r.key, r.long_lane), lane);
 }
 
 // -- gauge, status: last write --------------------------------------------------
@@ -801,7 +784,7 @@ fused_ingest_kernel(IngestArgs a) {
   float* mine = smem + (long long)warp * a.warp_floats;
   switch (ln) {
     case 0:
-      counter_lane(a, base, lane);
+      counter_lane(a, mine, base, lane);
       return;
     case 1:
       last_lane(a.g_slot, a.g_val, a.gauge, a.gauge_stamp, base, a.n[1],
@@ -871,19 +854,29 @@ extern "C" int vt_fused_ingest(void* const* p, const long long* d,
   a.block_start[kLanes] = blocks;
   a.hll_words = d[5];
   a.cells = d[6];
-  // per warp, the largest of the three long walks' shared memory
-  long long wf = slot_warp_floats();
-  if (cell_warp_floats(a.cells) > wf) wf = cell_warp_floats(a.cells);
-  if (set_warp_floats(a.hll_words) > wf) wf = set_warp_floats(a.hll_words);
-  a.warp_floats = (int)wf;
-  const size_t smem = (size_t)a.warp_floats * kWarps * sizeof(float);
+  a.warp_floats = (int)warp_smem_floats(a.hll_words, a.cells);
+  const size_t smem = (size_t)block_smem_bytes(a.hll_words, a.cells);
   if (blocks == 0) return (int)cudaGetLastError();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ingest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  // past 48 KB a kernel must be granted its dynamic shared memory, once
+  // per device for the largest size asked so far
+  static size_t granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > granted[dev])) {
+    e = cudaFuncSetAttribute(fused_ingest_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) granted[dev] = smem;
   }
   fused_ingest_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory, in bytes, that a launch with these widths asks
+// of each block.
+extern "C" long long vt_fused_ingest_smem(long long hll_words,
+                                          long long cells) {
+  return block_smem_bytes(hll_words, cells);
 }

@@ -107,6 +107,8 @@ def load() -> ctypes.CDLL:
     lib.vt_fused_ingest.argtypes = [ctypes.POINTER(vp),
                                     ctypes.POINTER(ll), vp]
     lib.vt_fused_ingest.restype = ctypes.c_int
+    lib.vt_fused_ingest_smem.argtypes = [ll, ll]
+    lib.vt_fused_ingest_smem.restype = ll
     lib.vt_digest_quantiles.argtypes = [vp, vp, vp, vp, vp, vp,
                                         ll, ctypes.c_int, ctypes.c_int, vp]
     lib.vt_digest_quantiles.restype = ctypes.c_int

@@ -17,8 +17,10 @@ at most once, so one vectorised scatter per rank is exact.
 For CPU tensors the wrapper runs `fused_ingest_plain`; for CUDA tensors it
 launches the kernel, or raises. The kernel needs no plan beyond the
 streams: it groups the set lane by 16-register group and the histogram
-lane by (slot, cell) itself, on the card. `launches` counts kernel
-launches only.
+lane by (slot, cell) itself, on the card. It stages a hot key's row in
+shared memory, so it refuses (ValueError) widths whose rows do not fit
+a block's: hll_precision 16, or more than 3,630 digest cells. `launches`
+counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -150,8 +152,46 @@ _STATE_DTYPES = {"gauge_stamp": torch.uint8, "status_stamp": torch.uint8,
 _STREAM_I32 = frozenset({"c_slot", "g_slot", "st_slot", "s_slot", "s_reg",
                          "s_rho", "h_slot", "h_cell", "h_tadd"})
 
+SMEM_PER_BLOCK = 227 * 1024   # the most shared memory an sm_90 block has
+_ROW = 260                    # a staged stream's row, in floats
+
+
+def _up4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def shared_bytes(hll_words: int, cells: int) -> int:
+    """Dynamic shared memory the kernel asks of each block at these widths
+    (csrc/fused_ingest.cu block_smem_bytes): each of its 4 warps reserves
+    the largest of its long walks -- the slot chain's staging, the cell
+    walk's digest row, the set walk's packed HLL row."""
+    slot = 7 * 2 * _ROW
+    cell = _up4(3 * cells) + 3 * 4 * _ROW + _up4(2 * 256 + 1)
+    sets = 64 + 2 * 2 * _ROW + _up4(hll_words) + _up4(hll_words // 3)
+    return max(slot, cell, sets) * 4 * 4
+
+
+def _check_spec(spec):
+    """Refuse widths the kernel cannot take: targets past 32-bit offsets,
+    and rows too wide to stage in a block's shared memory (hll_precision
+    16, or more than 3,630 digest cells: compression above ~2,200)."""
+    for name, rows, width in (("hll", spec.set_capacity, spec.hll_words),
+                              ("h_w", spec.histo_capacity,
+                               spec.total_cells)):
+        if rows * width >= 1 << 31:
+            raise ValueError(f"state.{name}: the kernel indexes it with "
+                             f"32-bit offsets; {rows} x {width} is too big")
+    need = shared_bytes(spec.hll_words, spec.total_cells)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the kernel stages a set row ({spec.hll_words} words, "
+            f"hll_precision {spec.hll_precision}) or a digest row "
+            f"({spec.total_cells} cells) in shared memory: {need} bytes a "
+            f"block, more than the {SMEM_PER_BLOCK} a block may have")
+
 
 def _validate(state, st: IngestStreams, spec, device):
+    _check_spec(spec)
     shapes = {
         "counter_acc": (spec.counter_capacity,),
         "gauge": (spec.gauge_capacity,), "gauge_stamp": (spec.gauge_capacity,),
@@ -169,12 +209,6 @@ def _validate(state, st: IngestStreams, spec, device):
                              f"{t.dtype}{list(t.shape)}")
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"state.{name}: must be contiguous on {device}")
-    for name, rows, width in (("hll", spec.set_capacity, spec.hll_words),
-                              ("h_w", spec.histo_capacity,
-                               spec.total_cells)):
-        if rows * width >= 1 << 31:
-            raise ValueError(f"state.{name}: the kernel indexes it with "
-                             f"32-bit offsets; {rows} x {width} is too big")
     for lane in _LANES:
         n = getattr(st, lane[0]).shape[0]
         for name in lane:
