@@ -15,18 +15,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      main path's Zipf batch and on a hot batch (one key owns the whole
      histogram lane, one the whole set lane), each with its longest runs;
    - digest quantiles (K2) against its plain version over 16384 and
-     131072 rows x 472 cells and over the range batch's 1024 rows x 32
-     cells, Q=4, empty and duplicate-key rows included: within rtol/atol
-     2e-5;
+     131072 synthetic rows x 472 cells (~60% live) and over 1024 rows x
+     32 cells, Q=4, empty and duplicate-key rows included, and (after
+     phase 5) on the very tensors the phase 4 and phase 5 flushes hand
+     it, captured from a repeat of each flush, with each capture's
+     live cells per row (p50, p99, max): within rtol/atol 2e-5, the same
+     NaN pattern; timed at the host's pace and on the card alone, beside
+     a stable torch.sort of the same rows' keys;
+   - K2 on the card alone against live cells per row (0 to 472 of 472,
+     131072 rows), each case held to the same tolerance;
    - masked window merge (K3) against its plain version on the same
      card tensors over 256 set rows x 360 ring columns x 3072 words
      (p=14) and 32 steps (tier-0 columns, decimated-tier covers, every
      column, none): byte-exact;
    each with its time (CUDA events over launches at the host's pace; K1
-   also on the card alone), the plain version's time and its bound (the
-   least time the card could take: bytes over 3.35 TB/s or operations over
-   67 TFLOP/s of fp32, whichever is larger; for K1 also its longest
-   ordered f32 chain at 4 cycles an add over the maximum SM clock);
+   and K2 also on the card alone), the plain version's time and its
+   bound (the least time the card could take: bytes over 3.35 TB/s or
+   operations over 67 TFLOP/s of fp32, whichever is larger; for K1 also
+   its longest ordered f32 chain at 4 cycles an add over the maximum SM
+   clock);
 4. the main path at the server's default widths: ~200k DogStatsD lines
    parsed, keyed and ingested by Aggregator(device="cuda"), a flush
    with [0.5, 0.9, 0.99] and generate_intermetrics; counters exact
@@ -46,7 +53,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the flushed counters and gauges the last flushed value; K3's merged
    words equal numpy's; the batch over a CPU copy of the ring (plain
    versions) agrees byte-exactly, set estimates within rtol 1e-6 and
-   quantiles within rtol/atol 2e-5; K2 and K3 were launched by it.
+   quantiles within rtol/atol 2e-5; the batch launched K2 once (every
+   step's digests in one call) and K3 once. K2's share of the batch
+   (its calls captured from one more batch) is held to its plain version
+   and timed on both timers.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -54,6 +64,7 @@ then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -392,9 +403,60 @@ def _digest_rows(rng, r, c):
     return mean, weight, mn.astype(np.float32), mx.astype(np.float32)
 
 
-def kernel_digest(device, rows: int, c: int | None = None) -> dict:
-    """K2 on `rows` digest rows of `c` cells (the live table's 472 unless
-    given), Q=4."""
+def _digest_case(device, args, clock_hz) -> dict:
+    """K2 on one set of card tensors (mean, weight, mn, mx, qs): within
+    rtol/atol 2e-5 of the plain version with the same NaN pattern, then
+    timed at the host's pace (`ms`, `_time_ms`) and on the card alone
+    (`device_ms`, `_device_ms`), beside the plain version, a stable
+    `torch.sort` of the same rows' keys (`sort_ms`: a yardstick for the
+    sort alone, not K2's function) and the bound. The bound counts the
+    work of the reference's full-row sort, whatever implements it."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_digest
+
+    got = cuda_digest.quantiles_rows(*args)
+    want = cuda_digest.quantiles_rows_plain(*args)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    _check(np.array_equal(np.isnan(g), np.isnan(w)),
+           "quantiles_rows NaN pattern differs from the plain version")
+    ok = ~np.isnan(w)
+    _check(np.allclose(g[ok], w[ok], rtol=2e-5, atol=2e-5),
+           "quantiles_rows differs from the plain version beyond 2e-5")
+    err = float(np.abs(g[ok].astype(np.float64) - w[ok]).max(initial=0.0))
+    mean, weight = args[0], args[1]
+    rows, c = mean.shape
+    live = (weight > 0).sum(-1).float()
+    keys = torch.where(weight > 0, mean, math.inf)
+
+    def run():
+        cuda_digest.quantiles_rows(*args)
+    ms = _time_ms(run, device, 20)
+    device_ms = _device_ms(run, 50, clock_hz)
+    plain_ms = _time_ms(lambda: cuda_digest.quantiles_rows_plain(*args),
+                        device, 5)
+    sort_ms = _time_ms(lambda: torch.sort(keys, dim=-1, stable=True),
+                       device, 5)
+    c_pad = 64
+    while c_pad < c:
+        c_pad <<= 1
+    stages = int(math.log2(c_pad)) * (int(math.log2(c_pad)) + 1) // 2
+    q = args[4].shape[0]
+    nbytes = rows * c * 8 + rows * 8 + q * 4 + rows * q * 4
+    ops = rows * (c_pad // 2 * stages * 4 + 2 * c_pad
+                  + q * (int(math.log2(c_pad)) + 6))
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return dict(rows=rows, cells=c, q=q, max_abs_err=err, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, sort_ms=sort_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                live_p50=float(live.quantile(0.5)),
+                live_p99=float(live.quantile(0.99)),
+                live_max=int(live.max()), library_ms=None)
+
+
+def kernel_digest(device, clock_hz, rows: int, c: int | None = None) -> dict:
+    """K2 on `rows` synthetic digest rows of `c` cells (the live table's
+    472 unless given), ~60% live, empty and duplicate-key rows included,
+    Q=4."""
     import torch
     from veneur_tpu_torch.ops import cuda_digest
 
@@ -403,31 +465,91 @@ def kernel_digest(device, rows: int, c: int | None = None) -> dict:
     qs = np.asarray([0.5, 0.9, 0.99, 0.5], np.float32)   # + median column
     args = [torch.from_numpy(a).to(device)
             for a in (*_digest_rows(rng, rows, c), qs)]
-    got = cuda_digest.quantiles_rows(*args)
-    want = cuda_digest.quantiles_rows_plain(*args)
-    g, w = got.cpu().numpy(), want.cpu().numpy()
-    _check(np.array_equal(np.isnan(g), np.isnan(w)),
-           "quantiles_rows NaN pattern differs from the plain version")
-    ok = ~np.isnan(w)
-    _check(np.isnan(g[::97]).all(), "empty digest rows must give NaN")
-    _check(np.allclose(g[ok], w[ok], rtol=2e-5, atol=2e-5),
-           "quantiles_rows differs from the plain version beyond 2e-5")
-    err = float(np.abs(g[ok].astype(np.float64) - w[ok]).max())
-    ms = _time_ms(lambda: cuda_digest.quantiles_rows(*args), device, 20)
-    plain_ms = _time_ms(lambda: cuda_digest.quantiles_rows_plain(*args),
-                        device, 5)
-    c_pad = 64
-    while c_pad < c:
-        c_pad <<= 1
-    stages = int(math.log2(c_pad)) * (int(math.log2(c_pad)) + 1) // 2
-    q = len(qs)
-    nbytes = rows * c * 8 + rows * 8 + q * 4 + rows * q * 4
-    ops = rows * (c_pad // 2 * stages * 4 + 2 * c_pad
-                  + q * (int(math.log2(c_pad)) + 6))
-    bound_ms, bound_by = _bound(nbytes, ops)
-    return dict(rows=rows, cells=c, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, ops=ops)
+    got = cuda_digest.quantiles_rows(*args).cpu().numpy()
+    _check(np.isnan(got[::97]).all(), "empty digest rows must give NaN")
+    return _digest_case(device, args, clock_hz)
+
+
+def digest_live_sweep(device, clock_hz, rows: int = 1 << 17,
+                      live=(0, 4, 32, 64, 128, 256, 472)) -> dict:
+    """K2's time on the card alone against the live cells per row: `rows`
+    rows of the live table's 472 cells, each with exactly n live cells at
+    random positions, Q=4; each case within rtol/atol 2e-5 of the plain
+    version with the same NaN pattern. Returns {n: device ms}."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_digest
+
+    c = _default_spec().total_cells
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    mean = torch.empty((rows, c), device=device).log_normal_(
+        3.0, 1.0, generator=gen)
+    qs = torch.tensor([0.5, 0.9, 0.99, 0.5], device=device)
+    out = {}
+    for n in live:
+        key = torch.rand((rows, c), device=device, generator=gen)
+        kth = key.kthvalue(max(n, 1), dim=-1, keepdim=True).values
+        weight = (key <= kth).float() * (n > 0)
+        on = weight > 0
+        args = (mean, weight, torch.where(on, mean, math.inf).amin(-1),
+                torch.where(on, mean, -math.inf).amax(-1), qs)
+        got = cuda_digest.quantiles_rows(*args)
+        want = cuda_digest.quantiles_rows_plain(*args)
+        _check(torch.equal(got.isnan(), want.isnan()) and torch.allclose(
+            got.nan_to_num(), want.nan_to_num(), rtol=2e-5, atol=2e-5),
+            f"quantiles_rows differs from the plain version at {n} live")
+        out[n] = _device_ms(lambda: cuda_digest.quantiles_rows(*args), 20,
+                            clock_hz)
+    return out
+
+
+def _digest_sequence(device, calls, clock_hz) -> dict:
+    """K2's share of a range batch: every captured call held to its plain
+    version (as _digest_case does), then all of them made back to back,
+    timed at the host's pace and on the card alone."""
+    from veneur_tpu_torch.ops import cuda_digest
+    cases = [_digest_case(device, args, clock_hz) for args in calls]
+
+    def run():
+        for args in calls:
+            cuda_digest.quantiles_rows(*args)
+    return dict(calls=len(calls), rows=[c["rows"] for c in cases][:4],
+                cells=cases[0]["cells"],
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=_time_ms(run, device, 20),
+                device_ms=_device_ms(run, 20, clock_hz),
+                bound_ms=sum(c["bound_ms"] for c in cases))
+
+
+@contextlib.contextmanager
+def digest_calls():
+    """Yields a list that gathers the arguments of every K2 call made
+    inside the block, by wrapping cuda_digest.quantiles_rows
+    (tdigest.quantiles looks it up at each call); restores it after."""
+    from veneur_tpu_torch.ops import cuda_digest
+    calls, orig = [], cuda_digest.quantiles_rows
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+    cuda_digest.quantiles_rows = record
+    try:
+        yield calls
+    finally:
+        cuda_digest.quantiles_rows = orig
+
+
+def _recapture_flush(agg, state, table, res, label):
+    """Run the flush once more on the same swapped state, with K2's inputs
+    captured, and check that it answers byte for byte as the timed flush
+    did (so the captured tensors are the ones that flush handed K2). The
+    timed flush itself runs unwrapped."""
+    with digest_calls() as calls:
+        again, _table = agg.compute_flush(state, table, PERCENTILES)
+    _check(all(np.asarray(again[k]).tobytes() == np.asarray(res[k]).tobytes()
+               for k in res), f"{label}: the repeated flush differs")
+    _check(len(calls) >= 1, f"{label}: the flush never called K2")
+    return calls
 
 
 def _merge_work(n: int, sel: np.ndarray, nw: int):
@@ -644,6 +766,7 @@ def main_path(device, lines) -> dict:
     launches = {"fused_ingest": cuda_ingest.launches,
                 "digest_quantiles": cuda_digest.launches,
                 "merge_windows": cuda_history.launches}
+    captured = _recapture_flush(agg, state, table, res, "default")
     checked = _check_flush(res, table, *_oracle(lines), label="default")
     n_h = checked["timers"]
     want_ims = (checked["counters"] + checked["gauges"] + checked["sets"]
@@ -655,7 +778,8 @@ def main_path(device, lines) -> dict:
                 launches=launches, ingest_s=t1 - t0,
                 samples_per_s=len(lines) / (t1 - t0),
                 flush_ms=(t2 - t1) * 1e3, label_ms=(t3 - t2) * 1e3,
-                intermetrics=len(ims), h2d_bytes=agg.h2d_bytes, **checked)
+                intermetrics=len(ims), h2d_bytes=agg.h2d_bytes,
+                **checked), captured
 
 
 # -- phase 5: the 1M-key table, staged in bulk ---------------------------------
@@ -723,6 +847,7 @@ def million_keys(device) -> dict:
     t3 = time.perf_counter()
     launches = {"fused_ingest": cuda_ingest.launches,
                 "digest_quantiles": cuda_digest.launches}
+    captured = _recapture_flush(agg, state, table, res, "1M")
 
     counters = {}
     sums = np.bincount(c_slot, weights=c_inc.astype(np.float64),
@@ -750,7 +875,7 @@ def million_keys(device) -> dict:
                 steps=agg.steps_total, launches=launches, alloc_s=alloc_s,
                 ingest_s=t2 - t1, flush_ms=(t3 - t2) * 1e3,
                 state_bytes=sum(t.numel() * t.element_size()
-                                for t in state), **checked)
+                                for t in state), **checked), captured
 
 
 # -- phase 6: the history tier at the default widths ---------------------------
@@ -945,14 +1070,13 @@ def history_path(device) -> dict:
     range_launches = {"digest_quantiles": cuda_digest.launches - k2,
                       "merge_windows": cuda_history.launches - k3}
     _res2, _inputs2, range_ms_warm = _range_batch(wr, need, device)
+    with digest_calls() as range_k2:         # K2's share, timed in main
+        _range_batch(wr, need, device)
     launches = {"fused_ingest": cuda_ingest.launches,
                 "digest_quantiles": cuda_digest.launches,
                 "merge_windows": cuda_history.launches}
     _check(launches["fused_ingest"] == agg.steps_total,
            "history: fused_ingest launches != ingest steps")
-    _check(range_launches["digest_quantiles"] >= 1
-           and range_launches["merge_windows"] >= 1,
-           f"range batch launches {range_launches}")            # gate (e)
 
     # gate (a): the fused ring is the replay of the archived frames
     replay = HistoryWriter(hspec, interval_s=10.0, device=device)
@@ -1007,6 +1131,8 @@ def history_path(device) -> dict:
     # the range program's parts, each timed alone on the same inputs
     k3_ms = _time_ms(lambda: cuda_history.merge_windows_packed(
         set_rows, sel, precision=p), device, 20)
+    k3_plain_ms = _time_ms(lambda: cuda_history.merge_windows_packed_plain(
+        set_rows, sel, precision=p), device, 2, warmup=1)
     k3_bytes, k3_ops = _merge_work(bs, inputs["sel"], hspec.hll_words)
     k3_bound_ms, _by = _bound(k3_bytes, k3_ops)
 
@@ -1042,11 +1168,11 @@ def history_path(device) -> dict:
             ("counters", "gauges", "status", "sets", "timers"))},
         range_steps=len(inputs["steps"]), range_padded_steps=inputs["n_steps"],
         range_ms=range_ms, range_ms_warm=range_ms_warm,
-        k3_ms=k3_ms, k3_bound_ms=k3_bound_ms,
+        k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound_ms,
         k3_cols=int((inputs["sel"] > 0).any(axis=0).sum()),
         gather_ms=gather_ms, counter_fold_ms=fold_ms,
         histo_compress_step_ms=compress_ms,
-        cpu_range_s=cpu_s, range_max_err=range_err)
+        cpu_range_s=cpu_s, range_max_err=range_err), range_k2
 
 
 def main() -> int:
@@ -1074,16 +1200,19 @@ def main() -> int:
     ingest = kernel_ingest(device, clock_hz)
     print(f"kernel fused_ingest (max SM clock {clock_hz / 1e6:.0f} MHz):",
           json.dumps(ingest))
-    digests = [kernel_digest(device, r) for r in (1 << 14, 1 << 17)]
-    # the range batch's shape: 1,024 timers x 32 centroids, per step
-    digests.append(kernel_digest(device, 1024, 32))
+    digests = [kernel_digest(device, clock_hz, r) for r in (1 << 14, 1 << 17)]
+    # one range step's shape: 1,024 timers x 32 centroids (a range batch
+    # now hands K2 all its steps' rows in one call)
+    digests.append(kernel_digest(device, clock_hz, 1024, 32))
     for d in digests:
         print("kernel digest_quantiles:", json.dumps(d))
+    print("kernel digest_quantiles, device ms by live cells per row "
+          "(131072 x 472):", json.dumps(digest_live_sweep(device, clock_hz)))
     merge = kernel_merge_windows(device)
     print("kernel merge_windows:", json.dumps(merge))
 
     lines = make_lines(np.random.default_rng(0), 200_000)
-    main = main_path(device, lines)
+    main, main_k2 = main_path(device, lines)
     print("main path (default widths):", json.dumps(main))
     _check(main["steps"] >= 16, f"only {main['steps']} ingest steps")
     _check(main["launches"]["fused_ingest"] == main["steps"],
@@ -1094,15 +1223,29 @@ def main() -> int:
           f"(parse + key + stage + ingest, host included), flush "
           f"{main['flush_ms']:.1f} ms")
 
-    big = million_keys(device)
+    big, big_k2 = million_keys(device)
     print("1M-key phase:", json.dumps(big))
     _check(big["launches"]["fused_ingest"] == big["steps"],
            "1M: fused_ingest launches != ingest steps")
     _check(big["launches"]["digest_quantiles"] >= 1,
            "1M: digest_quantiles never launched")
 
-    hist = history_path(device)
+    # phase 3, continued: K2 on the tensors the two flushes handed it
+    for label, calls in (("default flush", main_k2), ("1M flush", big_k2)):
+        for i, args in enumerate(calls):
+            d = _digest_case(device, args, clock_hz)
+            print(f"kernel digest_quantiles ({label}, call {i + 1} of "
+                  f"{len(calls)}):", json.dumps(d))
+    del main_k2, big_k2
+    torch.cuda.empty_cache()
+
+    hist, range_k2 = history_path(device)
     print("history path (default ring):", json.dumps(hist))
+    print("kernel digest_quantiles (range batch):",
+          json.dumps(_digest_sequence(device, range_k2, clock_hz)))
+    _check(hist["range_launches"] == {"digest_quantiles": 1,
+                                      "merge_windows": 1},
+           f"range batch launches {hist['range_launches']}")   # gate (e)
     _check(all(v >= 1 for v in hist["launches"].values()),
            f"history: a kernel was never launched {hist['launches']}")
     print(f"history path on {card}: flush {hist['flush_ms']:.1f} ms with "

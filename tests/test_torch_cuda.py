@@ -236,6 +236,110 @@ def test_digest_quantiles_kernel_matches_plain(cuda):
     np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
 
 
+def _k2_rows(rng, c):
+    """Digest rows of c cells that reach every path of K2: each live count
+    of LIVE (and c) that fits, with dead cells interleaved; duplicate
+    means; a live -inf; live +inf means behind dead cells, with a finite
+    and an infinite max."""
+    rows = []                                     # (mean, weight, max?)
+
+    def row(n, means=None):
+        mean = rng.lognormal(3.0, 1.0, c).astype(np.float32)
+        weight = np.zeros(c, np.float32)
+        at = rng.choice(c, n, replace=False)
+        weight[at] = rng.integers(1, 4, n) + rng.choice([0.0, 0.5], n)
+        if means is not None:
+            mean[at] = rng.choice(np.asarray(means, np.float32), n)
+        return mean, weight
+
+    for n in sorted({*K2_LIVE, c}):
+        if n <= c:
+            rows += [row(n) + (None,) for _ in range(3)]
+    for n in {min(c, 5), min(c, 40), c}:
+        rows.append(row(n, [1.0, 2.0, 2.0, 5.0]) + (None,))
+        rows.append(row(n, [0.0, -0.0, 3.0]) + (None,))
+    mean, weight = row(min(c, 7))
+    mean[np.flatnonzero(weight)[0]] = -np.inf
+    rows.append((mean, weight, None))
+    if c >= 3:
+        for top in (50.0, np.inf):
+            for n in {3, min(c, 300), c}:
+                mean, weight = row(n)
+                live = np.flatnonzero(weight)
+                mean[live[-1]] = np.inf           # after every dead cell
+                mean[live[len(live) // 2]] = np.inf
+                rows.append((mean, weight, top))
+    mean = np.stack([r[0] for r in rows])
+    weight = np.stack([r[1] for r in rows])
+    live = weight > 0
+    mn = np.where(live, mean, np.inf).min(-1).astype(np.float32)
+    mx = np.where(live, mean, -np.inf).max(-1).astype(np.float32)
+    for i, r in enumerate(rows):
+        if r[2] is not None:
+            mx[i] = r[2]
+    return mean, weight, mn, mx
+
+
+K2_LIVE = (0, 1, 2, 31, 32, 33, 64, 100, 200, 280, 472)
+
+
+@pytest.mark.parametrize("q", [1, 4, 40])
+@pytest.mark.parametrize("c", [1, 32, 33, 472, 2048])
+def test_digest_quantiles_kernel_every_path(cuda, c, q):
+    """K2 at each live count (one key a lane, 2-16 keys a lane in
+    registers, the shared-memory sort past 512), on the 16-byte and the
+    scalar load path, with ties, -0/+0, -inf and live +inf means: within
+    rtol/atol 2e-5 of the plain version, the same NaN pattern, one
+    launch."""
+    rng = np.random.default_rng(c * 100 + q)
+    qs = np.concatenate([[0.0, 1.0, 0.5], rng.uniform(0, 1, q)])[:q]
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (*_k2_rows(rng, c), qs.astype(np.float32))]
+    want = cuda_digest.quantiles_rows(*args).numpy()
+    before = cuda_digest.launches
+    got = cuda_digest.quantiles_rows(*(a.to(cuda) for a in args)).cpu()
+    assert cuda_digest.launches == before + 1
+    got = got.numpy()
+    empty = ~(args[1].numpy() > 0).any(-1)
+    assert np.isnan(got[empty]).all()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
+
+
+def test_digest_quantiles_kernel_unaligned_rows(cuda):
+    """Rows whose base is not 16-byte aligned take the scalar loads."""
+    rng = np.random.default_rng(5)
+    mean, weight, mn, mx = _k2_rows(rng, 472)
+    qs = torch.tensor([0.5, 0.9, 0.99, 0.5])
+    want = cuda_digest.quantiles_rows(*(torch.from_numpy(a) for a in
+                                        (mean, weight, mn, mx)), qs).numpy()
+
+    def shifted(a):
+        buf = torch.zeros(a.size + 1, dtype=torch.float32, device=cuda)
+        buf[1:] = torch.from_numpy(a.reshape(-1)).to(cuda)
+        return buf[1:].view(a.shape)
+    m, w = shifted(mean), shifted(weight)
+    assert m.data_ptr() % 16 and m.is_contiguous()
+    got = cuda_digest.quantiles_rows(m, w, torch.from_numpy(mn).to(cuda),
+                                     torch.from_numpy(mx).to(cuda),
+                                     qs.to(cuda)).cpu().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
+
+
+def test_digest_quantiles_refuses_rows_past_max_cells(cuda):
+    c = cuda_digest.MAX_CELLS + 1
+    mean = torch.zeros((2, c), device=cuda)
+    mm = torch.zeros(2, device=cuda)
+    before = cuda_digest.launches
+    with pytest.raises(ValueError, match="cells"):
+        cuda_digest.quantiles_rows(mean, mean.clone(), mm, mm.clone(),
+                                   torch.tensor([0.5], device=cuda))
+    assert cuda_digest.launches == before
+
+
 def test_slice_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(2)
     lines = []
@@ -367,7 +471,7 @@ def test_history_on_the_card_matches_the_cpu(cuda):
     sel = np.concatenate([p.sel for p in plans])
     k3, k2 = cuda_history.launches, cuda_digest.launches
     got = _range_answers(wr, need, sel, plans[0].rank)
-    assert cuda_history.launches == k3 + 1 and cuda_digest.launches > k2
+    assert cuda_history.launches == k3 + 1 and cuda_digest.launches == k2 + 1
     want = _range_answers(cpu, need, sel, plans[0].rank)
     for key in want:
         if key == "r_histo_quantiles":

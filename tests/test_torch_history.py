@@ -48,7 +48,7 @@ from veneur_tpu_torch.history import device as thdev
 from veneur_tpu_torch.history import merge as tmerge
 from veneur_tpu_torch.history.spec import HistorySpec as THistorySpec
 from veneur_tpu_torch.history.writer import HistoryWriter as TWriter
-from veneur_tpu_torch.ops import cuda_history, hll
+from veneur_tpu_torch.ops import cuda_digest, cuda_history, hll
 from veneur_tpu_torch.samplers.parser import parse_metric as tparse
 from veneur_tpu_torch.server.aggregator import Aggregator as TAggregator
 
@@ -285,6 +285,36 @@ def test_range_program_matches_jax(fed):
     jw, tw = fed
     got, want = _run_both(jw, tw, RANGES)
     _assert_range_equal(got, want)
+
+
+def test_range_quantiles_in_one_call_equal_the_per_step_calls(fed,
+                                                               monkeypatch):
+    """The range program hands every step's compressed digests to K2 in
+    one call; each step's rows of it are the bytes a call per step gives."""
+    _jw, tw = fed
+    calls = []
+    one_call = cuda_digest.quantiles_rows
+
+    def record(*args):
+        calls.append((args, one_call(*args)))
+        return calls[-1][1]
+    monkeypatch.setattr(cuda_digest, "quantiles_rows", record)
+    need, sel, rank = _batch(tw, RANGES)
+    ins = tmerge.pack_range_inputs(tw.spec, need, sel, rank, {0.5, 0.99})
+    got = _range(tmerge, tstep, tw, ins, lambda a: torch.from_numpy(a.copy()))
+    assert len(calls) == 1
+    (mean, weight, mn, mx, qs), out = calls[0]
+    n_steps, bh = ins[2], ins[3][4]            # steps, histogram rows
+    assert len(need[4]) > 0 and mean.shape[0] == bh * n_steps
+
+    def steps(a):                              # [bh * S, ...] -> [bh, S, ...]
+        return a.reshape(bh, n_steps, *a.shape[1:])
+    for i in range(n_steps):
+        per_step = one_call(*(steps(a)[:, i].contiguous() for a in
+                              (mean, weight, mn, mx)), qs)
+        assert per_step.numpy().tobytes() == \
+            steps(out)[:, i].contiguous().numpy().tobytes(), i
+    assert got["r_histo_quantiles"].tobytes() == steps(out).numpy().tobytes()
 
 
 def _live_flat(spec, table, step_mod, perc):

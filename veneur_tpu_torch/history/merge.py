@@ -97,8 +97,7 @@ def range_merge_core(hist: HistoryState, qs, cidx, gidx, stidx, setidx,
     hmin = _take(hist.h_min, hidx)           # [bh, W]
     hmax = _take(hist.h_max, hidx)
     bh, w, c = mean.shape
-    zeros = torch.zeros((bh,), dtype=torch.float32, device=mean.device)
-    hq_steps, mn_steps, mx_steps = [], [], []
+    cm_steps, cw_steps, mn_steps, mx_steps = [], [], [], []
     for i in range(s):
         m = sel[i]                           # [W]
         wm = weight * m[None, :, None]
@@ -107,15 +106,19 @@ def range_merge_core(hist: HistoryState, qs, cidx, gidx, stidx, setidx,
             compression=hspec.compression, cells_per_k=hspec.cells_per_k,
             out_c=hspec.centroids, exact_extremes=hspec.exact_extremes)
         on = m[None, :] > 0
-        mn = torch.amin(torch.where(on, hmin, torch.inf), dim=1)
-        mx = torch.amax(torch.where(on, hmax, -torch.inf), dim=1)
-        table = td.TDigestTable(mean=cm, weight=cw, min=mn, max=mx,
-                                count_hi=zeros, count_lo=zeros,
-                                sum_hi=zeros, sum_lo=zeros,
-                                recip_hi=zeros, recip_lo=zeros)
-        hq_steps.append(td.quantiles(table, qs))
-        mn_steps.append(mn)
-        mx_steps.append(mx)
+        mn_steps.append(torch.amin(torch.where(on, hmin, torch.inf), dim=1))
+        mx_steps.append(torch.amax(torch.where(on, hmax, -torch.inf), dim=1))
+        cm_steps.append(cm)
+        cw_steps.append(cw)
+    # every step's digests in one kernel launch: rows are independent, so
+    # the [bh, S] rows give the bytes the per-step calls would
+    hmn, hmx = torch.stack(mn_steps, dim=1), torch.stack(mx_steps, dim=1)
+    zeros = torch.zeros_like(hmn)
+    table = td.TDigestTable(mean=torch.stack(cm_steps, dim=1),
+                            weight=torch.stack(cw_steps, dim=1),
+                            min=hmn, max=hmx, count_hi=zeros, count_lo=zeros,
+                            sum_hi=zeros, sum_lo=zeros, recip_hi=zeros,
+                            recip_lo=zeros)
     hct_hi, hct_lo = _fold_pair(_take(hist.h_count_hi, hidx),
                                 _take(hist.h_count_lo, hidx), sel)
     hs_hi, hs_lo = _fold_pair(_take(hist.h_sum_hi, hidx),
@@ -124,9 +127,9 @@ def range_merge_core(hist: HistoryState, qs, cidx, gidx, stidx, setidx,
         "r_counter_hi": chi, "r_counter_lo": clo,
         "r_gauge": gauge, "r_status": status,
         "r_set_estimate": est,
-        "r_histo_quantiles": torch.stack(hq_steps, dim=1),
-        "r_histo_min": torch.stack(mn_steps, dim=1),
-        "r_histo_max": torch.stack(mx_steps, dim=1),
+        "r_histo_quantiles": td.quantiles(table, qs),   # [bh, S, Q]
+        "r_histo_min": hmn,
+        "r_histo_max": hmx,
         "r_histo_count_hi": hct_hi, "r_histo_count_lo": hct_lo,
         "r_histo_sum_hi": hs_hi, "r_histo_sum_lo": hs_lo,
     }

@@ -7,9 +7,10 @@ centroid-mass midpoints with min/max endpoints. It replaces the Pallas
 kernel veneur_tpu/ops/pallas_digest.py quantiles_rows; the CUDA source is
 csrc/digest_quantiles.cu.
 
-For a CPU tensor the wrapper runs `quantiles_rows_plain`; for a CUDA
-tensor it launches the kernel or raises. `launches` counts kernel
-launches and nothing else.
+The kernel gives each row one warp that sorts only the row's live cells
+(the design is in the note atop the CUDA source). For a CPU tensor the
+wrapper runs `quantiles_rows_plain`; for a CUDA tensor it launches the
+kernel or raises. `launches` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 launches = 0
 
-MAX_CELLS = 2048   # c_pad/2 threads per CTA, at most 1024
+MAX_CELLS = 2048   # a warp stages a row in 24 KB of shared memory
 
 
 def quantiles_rows_plain(mean, weight, mn, mx, qs) -> torch.Tensor:
