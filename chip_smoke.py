@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline]
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -27,9 +27,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    - masked window merge (K3) against its plain version on the same
      card tensors over 256 set rows x 360 ring columns x 3072 words
      (p=14) and 32 steps (tier-0 columns, decimated-tier covers, every
-     column, none): byte-exact;
-   each with its time (CUDA events over launches at the host's pace; K1
-   and K2 also on the card alone), the plain version's time and its
+     column, none), and in its row-index form (200 picks of those rows,
+     repeated and clamped ones included): byte-exact;
+   - the wide-row paths (C-1): K1 with rows walked in place, byte-exact
+     as above on the default-shaped and the hot batch, at compression
+     2,400 and hll_precision 16 (3,928 cells, 12,288 words a row); K2's
+     wide-row kernel over 16384 rows of 3,928 and of 2,056 cells with a
+     flush's live counts (most rows sparse, 1% >= 60% live), held as K2
+     is held;
+   (K3's row-index form and the wide-row paths run after phase 6, so that
+   phases 3-6 run alike with and without --baseline)
+   each with its time (CUDA events over launches at the host's pace, and
+   on the card alone), the plain version's time and its
    bound (the least time the card could take: bytes over 3.35 TB/s or
    operations over 67 TFLOP/s of fp32, whichever is larger; for K1 also
    its longest ordered f32 chain at 4 cycles an add over the maximum SM
@@ -56,7 +65,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    quantiles within rtol/atol 2e-5; the batch launched K2 once (every
    step's digests in one call) and K3 once. K2's share of the batch
    (its calls captured from one more batch) is held to its plain version
-   and timed on both timers.
+   and timed on both timers. K3 reads the set rows through the batch's
+   row index; it is timed as the program calls it, on the gathered rows,
+   and beside the set-row gather alone (which the program no longer
+   makes);
+7. the wide widths: 100k lines of phase 4's mix through Aggregator at
+   compression 2,400 and hll_precision 16 (the default capacities; 0.72
+   GB of state) on the card, flushed, held to phase 4's oracles, and
+   compared with the same run on the CPU (InterMetric names and types
+   equal, percentiles within 1e-2, set estimates within 1e-5, the rest
+   exact); every launch of that run is of the in-place K1 and the
+   wide-row K2.
+
+--baseline runs what a tree from before the wide-row paths and K3's row
+index can run (phases 1-6 without their wide and row-index parts), so
+that such a tree can be timed under this script beside a newer one.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -194,6 +217,17 @@ def _kernel_1m_spec():
     return TableSpec(counter_capacity=1 << 19, gauge_capacity=1 << 18,
                      status_capacity=1 << 10, set_capacity=1 << 14,
                      histo_capacity=1 << 17)
+
+
+def _wide_spec():
+    """The default table at the widths the wide-row kernels serve: digest
+    compression 2,400 (3,928 cells a row; h_w and h_wm 2 x 2^14 x 3,928 x
+    4 B = 0.51 GB) and hll_precision 16 (12,288 words a set row)."""
+    from veneur_tpu_torch.aggregation.state import TableSpec
+    return TableSpec(counter_capacity=1 << 17, gauge_capacity=1 << 15,
+                     status_capacity=1 << 10, set_capacity=1 << 12,
+                     histo_capacity=1 << 14, compression=2400.0,
+                     hll_precision=16)
 
 
 def _main_path_batch(rng, spec, bspec):
@@ -342,17 +376,17 @@ def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
                 max_run=runs)
 
 
-def warm_ingest_state(device):
-    """The default table after 8 of the main path's batches (digests warm,
-    one compaction): (spec, bspec, rng, state, last batch, its packed
-    buffer)."""
+def warm_ingest_state(device, spec=None):
+    """The default table (or `spec`) after 8 of the main path's batches
+    (digests warm, one compaction): (spec, bspec, rng, state, last batch,
+    its packed buffer)."""
     import torch
     from veneur_tpu_torch.aggregation.host import BatchSpec
     from veneur_tpu_torch.aggregation.state import empty_state
     from veneur_tpu_torch.aggregation.step import (
         batch_sizes, pack_batch, packed_step_core)
 
-    spec, bspec = _default_spec(), BatchSpec()
+    spec, bspec = spec or _default_spec(), BatchSpec()
     rng = np.random.default_rng(1)
     state = empty_state(spec, device)
     for step in range(1, 9):
@@ -363,15 +397,15 @@ def warm_ingest_state(device):
     return spec, bspec, rng, state, batch, flat
 
 
-def kernel_ingest(device, clock_hz) -> dict:
-    """K1 at the default table and batch widths on a warm state: the main
-    path's Zipf batch, then the hot batch (one key per histogram and set
-    lane)."""
+def kernel_ingest(device, clock_hz, spec=None) -> dict:
+    """K1 at the default table and batch widths (or the table `spec`) on a
+    warm state: the main path's Zipf batch, then the hot batch (one key
+    per histogram and set lane)."""
     import torch
     from veneur_tpu_torch.aggregation.step import (
         Batch, batch_sizes, packed_step_core)
 
-    spec, bspec, rng, state, batch, flat = warm_ingest_state(device)
+    spec, bspec, rng, state, batch, flat = warm_ingest_state(device, spec)
     sizes = batch_sizes(batch)
     step_ms = _time_ms(lambda: packed_step_core(
         state, flat, spec=spec, sizes=sizes, do_compact=False), device, 10)
@@ -467,6 +501,35 @@ def kernel_digest(device, clock_hz, rows: int, c: int | None = None) -> dict:
             for a in (*_digest_rows(rng, rows, c), qs)]
     got = cuda_digest.quantiles_rows(*args).cpu().numpy()
     _check(np.isnan(got[::97]).all(), "empty digest rows must give NaN")
+    return _digest_case(device, args, clock_hz)
+
+
+def kernel_digest_wide(device, clock_hz, c: int, rows: int = 1 << 14) -> dict:
+    """K2's wide-row kernel on `rows` rows of `c` cells (2,056 at
+    compression 1,279; 3,928 at 2,400) with a flush's live counts: most
+    rows 1-8 live cells, 9% tens to hundreds, 1% 60-100% live, every 97th
+    empty; Q=4. Held and timed as `_digest_case` holds and times K2."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_digest
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(c)
+    u = torch.rand(rows, device=device, generator=gen)
+    n = torch.randint(1, 9, (rows,), device=device, generator=gen).float()
+    n = torch.where(u < 0.09, torch.randint(10, 400, (rows,), device=device,
+                                            generator=gen).float(), n)
+    n = torch.where(u > 0.99, (0.6 + 0.4 * torch.rand(
+        rows, device=device, generator=gen)) * c, n)
+    n[::97] = 0.0
+    mean = torch.empty((rows, c), device=device).log_normal_(
+        3.0, 1.0, generator=gen)
+    on = torch.rand((rows, c), device=device, generator=gen) < (n / c)[:, None]
+    weight = on * torch.randint(1, 4, (rows, c), device=device,
+                                generator=gen).float()
+    args = (mean, weight, torch.where(on, mean, math.inf).amin(-1),
+            torch.where(on, mean, -math.inf).amax(-1),
+            torch.tensor([0.5, 0.9, 0.99, 0.5], device=device))
+    _check(c > cuda_digest.SMEM_CELLS, f"{c} cells is not a wide row")
     return _digest_case(device, args, clock_hz)
 
 
@@ -578,12 +641,12 @@ def _k3_sel(windows: int, tiers: int, steps: int = 32) -> np.ndarray:
     return sel
 
 
-def kernel_merge_windows(device, p=14, n=256, windows=90, tiers=3) -> dict:
-    """K3 at the default ring's full set shape: 256 rows x 360 columns
-    x 3072 words (p=14), registers 0..61, some all-zero rows and
-    columns, 32 steps."""
+def _k3_rows(device, p, n, windows, tiers):
+    """The default ring's full set shape: n rows x windows * (tiers + 1)
+    columns of packed registers 0..61 (p), some all-zero rows and
+    columns."""
     import torch
-    from veneur_tpu_torch.ops import cuda_history, hll
+    from veneur_tpu_torch.ops import hll
 
     w, nw = windows * (tiers + 1), hll.packed_words(p)
     gen = torch.Generator(device=device)
@@ -595,6 +658,19 @@ def kernel_merge_windows(device, p=14, n=256, windows=90, tiers=3) -> dict:
         rows[:, c] = hll.pack_registers(regs, precision=p)
     rows[::37] = 0
     rows[:, ::41] = 0
+    return rows
+
+
+def kernel_merge_windows(device, clock_hz, p=14, n=256, windows=90,
+                         tiers=3) -> dict:
+    """K3 at the default ring's full set shape: 256 rows x 360 columns
+    x 3072 words (p=14) and 32 steps (`_k3_sel`): byte-exact against its
+    plain version, timed at the host's pace and on the card alone."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_history
+
+    rows = _k3_rows(device, p, n, windows, tiers)
+    nw = rows.shape[2]
     sel_np = _k3_sel(windows, tiers)
     sel = torch.from_numpy(sel_np).to(device)
     got = cuda_history.merge_windows_packed(rows, sel, precision=p)
@@ -605,16 +681,54 @@ def kernel_merge_windows(device, p=14, n=256, windows=90, tiers=3) -> dict:
     _check(not got[:, -1].any() and bool(got[1:, -2].any()),
            "merge_windows: empty / all-column step wrong")
     err = float((got.long() - want.long()).abs().max())
-    del want
-    ms = _time_ms(lambda: cuda_history.merge_windows_packed(
-        rows, sel, precision=p), device, 20)
+    del want, got
+
+    def run():
+        cuda_history.merge_windows_packed(rows, sel, precision=p)
+    ms = _time_ms(run, device, 20)
+    device_ms = _device_ms(run, 20, clock_hz)
     plain_ms = _time_ms(lambda: cuda_history.merge_windows_packed_plain(
         rows, sel, precision=p), device, 2, warmup=1)
     nbytes, ops = _merge_work(n, sel_np, nw)
     bound_ms, bound_by = _bound(nbytes, ops)
-    return dict(rows=n, cols=w, words=nw, steps=sel_np.shape[0],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, ops=ops)
+    return dict(rows=n, cols=rows.shape[1], words=nw, steps=sel_np.shape[0],
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, ops=ops)
+
+
+def kernel_merge_windows_idx(device, clock_hz, p=14, n=256, windows=90,
+                             tiers=3) -> dict:
+    """K3's row-index form over the full set shape as a ring of 256 rows:
+    200 picks, repeated ones and ones below 0 and past the ring (clamped)
+    included, `_k3_sel`'s 32 steps: byte-exact against its plain version,
+    timed at the host's pace and on the card alone."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_history
+
+    rows = _k3_rows(device, p, n, windows, tiers)
+    sel_np = _k3_sel(windows, tiers)
+    sel = torch.from_numpy(sel_np).to(device)
+    pick = np.random.default_rng(4).permutation(n)[:200]
+    pick[::50] = pick[1::50]                           # repeated rows
+    pick[7], pick[8] = -4, n + 9                       # clamped
+    idx = torch.from_numpy(pick.astype(np.int32)).to(device)
+    got = cuda_history.merge_windows_packed(rows, sel, precision=p, idx=idx)
+    want = cuda_history.merge_windows_packed_plain(rows, sel, precision=p,
+                                                   idx=idx)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, want),
+           "merge_windows (row index) differs from the plain version")
+    del got, want
+
+    def run():
+        cuda_history.merge_windows_packed(rows, sel, precision=p, idx=idx)
+    nbytes, ops = _merge_work(idx.numel(), sel_np, rows.shape[2])
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return dict(picks=idx.numel(), ring_rows=n, max_abs_err=0.0,
+                ms=_time_ms(run, device, 20),
+                device_ms=_device_ms(run, 20, clock_hz), bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # -- phase 4: the main path at the default widths ------------------------------
@@ -997,10 +1111,12 @@ def _compare_range(got, want, label):
     return err
 
 
-def history_path(device) -> dict:
+def history_path(device, clock_hz, with_idx: bool) -> dict:
     """The history tier through the port's entry points: compute_flush
     with the ring write fused in, decimation at each power-of-two
-    boundary, then one range batch through range_in_packed."""
+    boundary, then one range batch through range_in_packed. K3 reads the
+    ring's set rows through the batch's row index (with_idx), or is
+    handed them gathered (a tree whose K3 takes no index)."""
     import torch
     from veneur_tpu_torch import convert
     from veneur_tpu_torch.aggregation.host import BatchSpec
@@ -1018,13 +1134,16 @@ def history_path(device) -> dict:
                                   max_keys=1 << 20)
     agg = Aggregator(spec, BatchSpec(), device=device)
     wr = HistoryWriter(hspec, interval_s=10.0, device=device)
+    # the bytes the allocator was asked for (its allocated bytes may count
+    # a cached block it did not split, up to 1 MiB a tensor)
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated(device)
+    before = torch.cuda.memory_stats(device)["requested_bytes.all.current"]
     ring = wr.acquire_read()
     wr.release_read()
     torch.cuda.synchronize()
     ring_bytes = sum(t.numel() * t.element_size() for t in ring)
-    alloc = torch.cuda.memory_allocated(device) - before
+    alloc = (torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+             - before)
     _check(hspec.hbm_bytes() == ring_bytes == alloc == 3_210_117_120,
            f"ring: spec {hspec.hbm_bytes()}, tensors {ring_bytes}, "
            f"allocated {alloc} bytes")
@@ -1098,15 +1217,21 @@ def history_path(device) -> dict:
     hist = wr.acquire_read()
     wr.release_read()
     idx, off = {}, inputs["n_q"]
-    for k, nb in enumerate(inputs["buckets"]):      # the program's gathers
+    for k, nb in enumerate(inputs["buckets"]):      # the program's indices
         idx[k] = torch.from_numpy(
-            inputs["flat"][off:off + nb].astype(np.int64)).to(device)
+            inputs["flat"][off:off + nb].astype(np.int32)).to(device)
         off += nb
     setidx = idx[3]
     bs = inputs["buckets"][3]
     sel = torch.from_numpy(inputs["sel"]).to(device)
     set_rows = _take(hist.hll, setidx)
-    merged = cuda_history.merge_windows_packed(set_rows, sel, precision=p)
+
+    def k3_as_the_program_calls_it():
+        if with_idx:
+            return cuda_history.merge_windows_packed(
+                hist.hll, sel, precision=p, idx=setidx)
+        return cuda_history.merge_windows_packed(set_rows, sel, precision=p)
+    merged = k3_as_the_program_calls_it()
     _check(np.array_equal(merged.cpu().numpy(), _merge_np(
         set_rows.cpu().numpy(), inputs["sel"], p)),
         "merge_windows differs from numpy on the ring's set rows")
@@ -1128,17 +1253,32 @@ def history_path(device) -> dict:
                        ).any() and (res["r_set_estimate"] > 0).any(),
            "range batch answered nothing")
 
-    # the range program's parts, each timed alone on the same inputs
-    k3_ms = _time_ms(lambda: cuda_history.merge_windows_packed(
-        set_rows, sel, precision=p), device, 20)
+    # the range program's parts, each timed alone on the same inputs: K3
+    # as the program calls it, K3 on the gathered set rows (the range
+    # batch's shape as every tree runs it), and the set-row gather that
+    # a K3 without a row index needs
+    k3_ms = _time_ms(k3_as_the_program_calls_it, device, 20)
+    k3_device_ms = _device_ms(k3_as_the_program_calls_it, 20, clock_hz)
+
+    def k3_gathered():
+        cuda_history.merge_windows_packed(set_rows, sel, precision=p)
+    k3_gathered_ms = _time_ms(k3_gathered, device, 20)
+    k3_gathered_device_ms = _device_ms(k3_gathered, 20, clock_hz)
     k3_plain_ms = _time_ms(lambda: cuda_history.merge_windows_packed_plain(
         set_rows, sel, precision=p), device, 2, warmup=1)
     k3_bytes, k3_ops = _merge_work(bs, inputs["sel"], hspec.hll_words)
     k3_bound_ms, _by = _bound(k3_bytes, k3_ops)
 
-    def gathers():
+    def set_gather():
+        _take(hist.hll, setidx)
+    set_gather_ms = _time_ms(set_gather, device, 10)
+    set_gather_device_ms = _device_ms(set_gather, 10, clock_hz)
+    del set_rows
+
+    def gathers():        # the row gathers the range program makes
         for name in hdev.HISTORY_FIELDS:
-            _take(getattr(hist, name), idx[hdev.FIELD_KIND[name]])
+            if name != "hll" or not with_idx:
+                _take(getattr(hist, name), idx[hdev.FIELD_KIND[name]])
     gather_ms = _time_ms(gathers, device, 5)
     c_hi, c_lo = _take(hist.counter_hi, idx[0]), _take(hist.counter_lo,
                                                        idx[0])
@@ -1168,11 +1308,105 @@ def history_path(device) -> dict:
             ("counters", "gauges", "status", "sets", "timers"))},
         range_steps=len(inputs["steps"]), range_padded_steps=inputs["n_steps"],
         range_ms=range_ms, range_ms_warm=range_ms_warm,
-        k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound_ms,
+        k3_ms=k3_ms, k3_device_ms=k3_device_ms,
+        k3_gathered_ms=k3_gathered_ms,
+        k3_gathered_device_ms=k3_gathered_device_ms,
+        k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound_ms,
         k3_cols=int((inputs["sel"] > 0).any(axis=0).sum()),
+        set_gather_ms=set_gather_ms,
+        set_gather_device_ms=set_gather_device_ms,
         gather_ms=gather_ms, counter_fold_ms=fold_ms,
         histo_compress_step_ms=compress_ms,
         cpu_range_s=cpu_s, range_max_err=range_err), range_k2
+
+
+# -- phase 7: the wide widths ---------------------------------------------------
+
+def _compare_intermetrics(got, want, label):
+    """The card's InterMetrics against the CPU's, as the card test of the
+    slice compares them: the same names and types; percentiles within
+    1e-2 relative (the torch prologue's sums round differently on the
+    card, so a sample may land one digest cell over), set estimates
+    within 1e-5 relative, everything else equal."""
+    _check([(m.name, m.type) for m in got] == [(m.name, m.type)
+                                               for m in want],
+           f"{label}: InterMetric names or types differ")
+    worst = 0.0
+    for g, c in zip(got, want):
+        if g.name.endswith("percentile"):
+            d = abs(g.value - c.value)
+            _check(d <= 1e-2 * abs(c.value) + 1e-6,
+                   f"{label}: {g.name} {g.value} vs {c.value}")
+            worst = max(worst, d / max(abs(c.value), 1e-9))
+        elif g.name.startswith("users.active"):
+            _check(abs(g.value - c.value) <= 1e-5 * c.value,
+                   f"{label}: {g.name} {g.value} vs {c.value}")
+        else:
+            _check(g.value == c.value,
+                   f"{label}: {g.name} {g.value} vs {c.value}")
+    return worst
+
+
+def wide_widths(device, lines) -> dict:
+    """The slice at compression 2,400 and hll_precision 16 (`_wide_spec`:
+    the default capacities, 3,928 digest cells and 12,288 HLL words a
+    row), through Aggregator on the card and then on the CPU: the lines
+    parsed, keyed and ingested (compaction every 2 steps, so the wide
+    digests compact too), one flush and generate_intermetrics. The card's
+    flush is held to phase 4's oracles and to the CPU's InterMetrics; its
+    launches count the in-place K1 and the wide-row K2, which must be
+    every launch it made."""
+    import torch
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.samplers.parser import parse_metric
+    from veneur_tpu_torch.server.aggregator import Aggregator
+    from veneur_tpu_torch.server.flusher import generate_intermetrics
+
+    spec = _wide_spec()
+    out, ims_by = {}, []
+    for dev in (device, torch.device("cpu")):
+        first = not ims_by
+        agg = Aggregator(spec, BatchSpec(), device=dev, compact_every=2)
+        if first:
+            cuda_ingest.launches = cuda_ingest.wide_launches = 0
+            cuda_digest.launches = cuda_digest.wide_launches = 0
+            cuda_history.launches = 0
+        t0 = time.perf_counter()
+        for line in lines:
+            agg.process_metric(parse_metric(line))
+        state, table = agg.swap()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res, table = agg.compute_flush(state, table, PERCENTILES)
+        t2 = time.perf_counter()
+        ims_by.append(generate_intermetrics(
+            res, table, percentiles=PERCENTILES, aggregates=AGGREGATES,
+            is_local=False, timestamp=1))
+        if first:
+            out["launches"] = {
+                "fused_ingest": cuda_ingest.launches,
+                "fused_ingest_wide": cuda_ingest.wide_launches,
+                "digest_quantiles": cuda_digest.launches,
+                "digest_quantiles_wide": cuda_digest.wide_launches,
+                "merge_windows": cuda_history.launches}
+            out.update(steps=agg.steps_total, ingest_s=t1 - t0,
+                       samples_per_s=len(lines) / (t1 - t0),
+                       flush_ms=(t2 - t1) * 1e3,
+                       state_bytes=sum(t.numel() * t.element_size()
+                                       for t in state))
+            out.update(_check_flush(res, table, *_oracle(lines),
+                                    label="wide"))
+        else:
+            out.update(cpu_ingest_s=t1 - t0, cpu_flush_ms=(t2 - t1) * 1e3)
+        del agg, state, res
+        torch.cuda.empty_cache()
+    out["worst_percentile_rel_vs_cpu"] = _compare_intermetrics(
+        *ims_by, "wide: card vs CPU")
+    out.update(lines=len(lines), intermetrics=len(ims_by[0]),
+               total_cells=spec.total_cells, hll_words=spec.hll_words)
+    return out
 
 
 def main() -> int:
@@ -1191,6 +1425,11 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    # --baseline drives a tree from before the wide-row kernels and K3's
+    # row index, so that such a tree can be timed under this script: it
+    # leaves out phase 3's wide cases and K3's index form and phase 7,
+    # and hands K3 gathered set rows in phase 6
+    baseline = "--baseline" in sys.argv[1:]
     device = torch.device("cuda")
     card = device_line()
     print("card:", card)
@@ -1208,7 +1447,7 @@ def main() -> int:
         print("kernel digest_quantiles:", json.dumps(d))
     print("kernel digest_quantiles, device ms by live cells per row "
           "(131072 x 472):", json.dumps(digest_live_sweep(device, clock_hz)))
-    merge = kernel_merge_windows(device)
+    merge = kernel_merge_windows(device, clock_hz)
     print("kernel merge_windows:", json.dumps(merge))
 
     lines = make_lines(np.random.default_rng(0), 200_000)
@@ -1239,7 +1478,7 @@ def main() -> int:
     del main_k2, big_k2
     torch.cuda.empty_cache()
 
-    hist, range_k2 = history_path(device)
+    hist, range_k2 = history_path(device, clock_hz, with_idx=not baseline)
     print("history path (default ring):", json.dumps(hist))
     print("kernel digest_quantiles (range batch):",
           json.dumps(_digest_sequence(device, range_k2, clock_hz)))
@@ -1252,6 +1491,34 @@ def main() -> int:
           f"the ring ({hist['flush_ms_without_ring']:.1f} ms without), "
           f"range batch {hist['range_ms_warm']['total']:.1f} ms, K3 "
           f"{hist['k3_ms']:.3f} ms")
+    del range_k2
+    torch.cuda.empty_cache()
+
+    if not baseline:
+        # phase 3, continued: what a baseline tree cannot run, after the
+        # phases it can, so that those run alike on both trees
+        merge_idx = kernel_merge_windows_idx(device, clock_hz)
+        print("kernel merge_windows, row index:", json.dumps(merge_idx))
+        ingest_wide = kernel_ingest(device, clock_hz, _wide_spec())
+        print("kernel fused_ingest, rows in place (compression 2400, "
+              "hll_precision 16):", json.dumps(ingest_wide))
+        digests_wide = [kernel_digest_wide(device, clock_hz, c)
+                        for c in (3928, 2056)]
+        for d in digests_wide:
+            print("kernel digest_quantiles, wide rows:", json.dumps(d))
+        torch.cuda.empty_cache()
+
+        wide = wide_widths(device, make_lines(np.random.default_rng(9),
+                                              100_000))
+        print("wide widths (compression 2400, hll_precision 16):",
+              json.dumps(wide))
+        want = {"fused_ingest": 0, "fused_ingest_wide": wide["steps"],
+                "digest_quantiles": 0, "merge_windows": 0}
+        _check({k: v for k, v in wide["launches"].items()
+                if k != "digest_quantiles_wide"} == want
+               and wide["launches"]["digest_quantiles_wide"] >= 1,
+               f"wide widths: launches {wide['launches']}, want {want} "
+               "and digest_quantiles_wide >= 1")
 
     src = "veneur_tpu_torch/csrc/"
     kernels = [
@@ -1278,6 +1545,27 @@ def main() -> int:
              plain_ms=merge["plain_ms"], bound_ms=merge["bound_ms"],
              bound_by=merge["bound_by"], library_ms=None),
     ]
+    if not baseline:
+        kernels += [
+            dict(name="fused_ingest_wide", route="cuda",
+                 source=src + "fused_ingest.cu",
+                 replaces="veneur_tpu/ops/pallas_ingest.py:310",
+                 launches=wide["launches"]["fused_ingest_wide"],
+                 max_abs_err=max(ingest_wide["max_abs_err"],
+                                 ingest_wide["hot"]["max_abs_err"]),
+                 ms=ingest_wide["ms"], plain_ms=ingest_wide["plain_ms"],
+                 bound_ms=ingest_wide["bound_ms"],
+                 bound_by=ingest_wide["bound_by"], library_ms=None),
+            dict(name="digest_quantiles_wide", route="cuda",
+                 source=src + "digest_quantiles.cu",
+                 replaces="veneur_tpu/ops/pallas_digest.py:189",
+                 launches=wide["launches"]["digest_quantiles_wide"],
+                 max_abs_err=max(d["max_abs_err"] for d in digests_wide),
+                 ms=digests_wide[0]["ms"],
+                 plain_ms=digests_wide[0]["plain_ms"],
+                 bound_ms=digests_wide[0]["bound_ms"],
+                 bound_by=digests_wide[0]["bound_by"], library_ms=None),
+        ]
     print(f"build {build_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,17 @@ machine has no JAX.)
 - fused ingest (K1): byte-exact on all 14 state leaves against the plain
   version run on a CPU copy of the same streams, on Zipf batches, on
   batches where one slot takes a whole lane, and on hand-made streams
-  with runs of 4,096+ entries; at the widest rows it stages in shared
-  memory; and it refuses, before any launch, streams that are not
-  16-byte aligned and tables past 32-bit offsets;
-- digest quantiles (K2): within rtol/atol 2e-5 of the plain version;
-- masked window merge (K3): byte-exact against the plain version;
+  with runs of 4,096+ entries, at the default widths (rows staged in
+  shared memory) and at compression 2,400 with hll_precision 16 (rows
+  walked in place); at the widest rows it stages; and it refuses,
+  before any launch, streams that are not 16-byte aligned and tables
+  past 32-bit offsets;
+- digest quantiles (K2): within rtol/atol 2e-5 of the plain version, on
+  rows staged in shared memory and on rows past 2,048 cells (global
+  scratch);
+- masked window merge (K3): byte-exact against the plain version, with
+  and without a row index, on the 16-byte and the scalar paths and on a
+  ring of more than 12,288 columns;
 - the whole slice on the card against the same slice on the CPU;
 - the history tier on the card: the fused ring equals a replay of the
   archived frames, and a range batch matches the same batch over a CPU
@@ -44,6 +50,11 @@ pytestmark = pytest.mark.gpu
 SPEC = tstate.TableSpec(counter_capacity=1 << 12, gauge_capacity=256,
                         status_capacity=64, set_capacity=64,
                         histo_capacity=256)
+# 3,928 digest cells and 12,288 HLL words a row: K1 walks them in place
+WIDE_SPEC = tstate.TableSpec(counter_capacity=1 << 12, gauge_capacity=256,
+                             status_capacity=64, set_capacity=64,
+                             histo_capacity=256, compression=2400.0,
+                             hll_precision=16)
 
 
 @pytest.fixture
@@ -121,47 +132,66 @@ def _hand_streams(rng, spec):
         for name, a in zip(cuda_ingest.IngestStreams._fields, arrays)))
 
 
-@pytest.mark.parametrize("case", ["zipf", "hot", "hand"])
-def test_fused_ingest_kernel_byte_exact(cuda, case):
+def _ingest_byte_exact(cuda, spec, case):
+    """Four batches of `case` through K1 and through the plain version on
+    a CPU copy of the same state and streams: every leaf byte-equal, one
+    launch of the kernel the spec's widths pick."""
+    wide = cuda_ingest.rows_in_place(spec)
     rng = np.random.default_rng(0)
-    gpu = tstate.empty_state(SPEC, cuda)
+    gpu = tstate.empty_state(spec, cuda)
     for _ in range(4):
         if case == "hand":
             streams = cuda_ingest.IngestStreams(
-                *(t.to(cuda) for t in _hand_streams(rng, SPEC)))
+                *(t.to(cuda) for t in _hand_streams(rng, spec)))
         else:
             make = _batch if case == "zipf" else _hot_batch
             batch = tstep.Batch(*(None if a is None else
                                   torch.from_numpy(a).to(cuda)
-                                  for a in make(rng, SPEC)))
-            streams = tstep.build_streams(gpu, batch, SPEC)
+                                  for a in make(rng, spec)))
+            streams = tstep.build_streams(gpu, batch, spec)
         cpu = convert.state_from_numpy(convert.state_to_numpy(gpu), "cpu")
-        before = cuda_ingest.launches
-        cuda_ingest.fused_ingest(gpu, streams, SPEC)
+        before = (cuda_ingest.launches, cuda_ingest.wide_launches)
+        cuda_ingest.fused_ingest(gpu, streams, spec)
         torch.cuda.synchronize()
-        assert cuda_ingest.launches == before + 1
+        assert (cuda_ingest.launches, cuda_ingest.wide_launches) == (
+            before[0] + (not wide), before[1] + wide)
         cuda_ingest.fused_ingest(
             cpu, cuda_ingest.IngestStreams(*(t.cpu() for t in streams)),
-            SPEC)
+            spec)
         got, want = convert.state_to_numpy(gpu), convert.state_to_numpy(cpu)
         for name in cuda_ingest.STATE_LEAVES:
             assert got[name].tobytes() == want[name].tobytes(), name
+
+
+@pytest.mark.parametrize("case", ["zipf", "hot", "hand"])
+def test_fused_ingest_kernel_byte_exact(cuda, case):
+    _ingest_byte_exact(cuda, SPEC, case)
+
+
+@pytest.mark.parametrize("case", ["zipf", "hot", "hand"])
+def test_fused_ingest_wide_kernel_byte_exact(cuda, case):
+    """Compression 2,400 and hll_precision 16: the in-place kernel."""
+    assert cuda_ingest.rows_in_place(WIDE_SPEC)
+    _ingest_byte_exact(cuda, WIDE_SPEC, case)
 
 
 def test_fused_ingest_kernel_widest_spec_byte_exact(cuda):
     """The widest rows the kernel stages in shared memory (hll_precision
     15, 3,624 digest cells: 232,128 bytes a block) on the hot batch; the
     wrapper's mirror of the kernel's shared-memory need agrees with the
-    kernel's own."""
+    kernel's own, rows staged and in place."""
     spec = tstate.TableSpec(counter_capacity=1 << 12, gauge_capacity=256,
                             status_capacity=64, set_capacity=64,
                             histo_capacity=256, hll_precision=15,
                             compression=2200.0)
     lib = _build.load()
     for words, cells in ((3072, 472), (spec.hll_words, spec.total_cells),
-                         (12288, 472), (3072, 3631), (192, 40)):
-        assert lib.vt_fused_ingest_smem(words, cells) == \
-            cuda_ingest.shared_bytes(words, cells), (words, cells)
+                         (12288, 472), (3072, 3631), (192, 40),
+                         (12288, 3928)):
+        for in_place in (False, True):
+            assert lib.vt_fused_ingest_smem(words, cells, in_place) == \
+                cuda_ingest.shared_bytes(words, cells, in_place), (
+                    words, cells, in_place)
     assert cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells) == \
         232_128
     rng = np.random.default_rng(5)
@@ -329,15 +359,27 @@ def test_digest_quantiles_kernel_unaligned_rows(cuda):
     np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
 
 
-def test_digest_quantiles_refuses_rows_past_max_cells(cuda):
-    c = cuda_digest.MAX_CELLS + 1
-    mean = torch.zeros((2, c), device=cuda)
-    mm = torch.zeros(2, device=cuda)
-    before = cuda_digest.launches
-    with pytest.raises(ValueError, match="cells"):
-        cuda_digest.quantiles_rows(mean, mean.clone(), mm, mm.clone(),
-                                   torch.tensor([0.5], device=cuda))
-    assert cuda_digest.launches == before
+@pytest.mark.parametrize("c", [2049, 2056, 3928, 9000])
+def test_digest_quantiles_wide_rows_match_plain(cuda, c):
+    """Rows past SMEM_CELLS (2,049 on the scalar loads; 2,056 and 3,928,
+    compression 1,279 and 2,400; 9,000) go to the wide-row kernel, once a
+    call: every live count of K2_LIVE and c, ties, -0/+0, -inf, and live
+    +inf means behind dead cells, within rtol/atol 2e-5 of the plain
+    version with the same NaN pattern."""
+    assert c > cuda_digest.SMEM_CELLS
+    rng = np.random.default_rng(c)
+    qs = np.asarray([0.0, 0.5, 0.9, 0.99, 1.0], np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (*_k2_rows(rng, c), qs)]
+    want = cuda_digest.quantiles_rows(*args).numpy()
+    before = (cuda_digest.launches, cuda_digest.wide_launches)
+    got = cuda_digest.quantiles_rows(*(a.to(cuda) for a in args)).cpu()
+    assert (cuda_digest.launches, cuda_digest.wide_launches) == (
+        before[0], before[1] + 1)
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
 
 
 def test_slice_on_the_card_matches_the_cpu(cuda):
@@ -388,9 +430,17 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
             assert g.value == c.value, g.name
 
 
-@pytest.mark.parametrize("p,n,w,s", [(10, 5, 7, 3), (10, 4, 200, 4),
-                                     (14, 9, 37, 6), (14, 3, 361, 5)])
-def test_merge_windows_kernel_byte_exact(cuda, p, n, w, s):
+@pytest.mark.parametrize("p,n,w,s,form", [
+    (10, 5, 7, 3, "rows"), (10, 4, 200, 4, "rows"), (14, 9, 37, 6, "rows"),
+    (14, 3, 361, 5, "rows"), (14, 6, 361, 40, "idx"), (4, 5, 9, 3, "idx"),
+    (5, 4, 700, 6, "idx"), (10, 5, 33, 4, "unaligned"),
+    (4, 3, 12_300, 3, "idx")])
+def test_merge_windows_kernel_byte_exact(cuda, p, n, w, s, form):
+    """K3 against its plain version: rows given whole or through a row
+    index (repeated, and clamped from below 0 and past the ring); the
+    16-byte path (p >= 6) and the scalar one (p = 4, 5, and a base off
+    16-byte alignment); more than 32 steps (two step groups); a ring of
+    more than 512 columns (several column chunks) and of 12,300."""
     rng = np.random.default_rng(1000 * p + w)
     regs = rng.integers(0, 64, (n, w, 1 << p)).astype(np.uint8)
     regs[0] = 0                                   # all-zero row
@@ -400,14 +450,25 @@ def test_merge_windows_kernel_byte_exact(cuda, p, n, w, s):
     sel[0, 0], sel[0, -1] = np.nan, -1.0          # never selected
     sel[-1] = 1.0                                 # every column
     sel = torch.from_numpy(sel)
-    want = cuda_history.merge_windows_packed(rows, sel, precision=p)
+    idx = None
+    if form == "idx":
+        idx = torch.tensor([n - 1, 0, 2, -3, n + 4, 2, 1], dtype=torch.int32)
+    want = cuda_history.merge_windows_packed(rows, sel, precision=p,
+                                             idx=idx)
+    rows_c = rows.to(cuda)
+    if form == "unaligned":
+        buf = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = rows_c.reshape(-1)
+        rows_c = buf[1:].view(rows.shape)
+        assert rows_c.data_ptr() % 16 and rows_c.is_contiguous()
     before = cuda_history.launches
-    got = cuda_history.merge_windows_packed(rows.to(cuda), sel.to(cuda),
-                                            precision=p)
+    got = cuda_history.merge_windows_packed(
+        rows_c, sel.to(cuda), precision=p,
+        idx=None if idx is None else idx.to(cuda))
     torch.cuda.synchronize()
     assert cuda_history.launches == before + 1
     assert torch.equal(got.cpu(), want)
-    assert not want[:, 1].any() and want[1:, -1].any()
+    assert not want[:, 1].any() and want[want.shape[0] - 1, -1].any()
 
 
 def _range_answers(wr, need, sel, rank):

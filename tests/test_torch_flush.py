@@ -4,8 +4,8 @@
   the Pallas kernel `quantiles_rows` in interpret mode and against the XLA
   path `_quantiles_one`, within rtol/atol 2e-5: random occupancy, empty
   rows (NaN), single-cell rows, duplicate means, dead cells (keyed +inf)
-  among live ones, endpoint quantiles, and the production 472-cell
-  width.
+  among live ones, endpoint quantiles, the production 472-cell width,
+  and rows of 2,056 and 3,928 cells.
 - `flush_live_in_packed`: the packed output buffer byte-equal to the JAX
   one except the quantile and median columns (2e-5) and the HLL
   estimates (rtol 1e-6), with and without the raw sketch rows.
@@ -70,9 +70,12 @@ def _xla(mean, weight, mn, mx, qs):
         *map(jnp.asarray, (mean, weight, mn, mx, qs))))
 
 
-@pytest.mark.parametrize("c", [64, 232, 472])
+@pytest.mark.parametrize("c", [64, 232, 472, 2056, 3928])
 def test_plain_quantiles_match_pallas_interpret_and_xla(c):
-    mean, weight, mn, mx, = _digest_rows(c, 40, c)
+    """Up to the production width on 40 rows, and at the rows the card
+    serves past shared memory (2,056 and 3,928 cells: compression 1,279
+    and 2,400) on 8."""
+    mean, weight, mn, mx, = _digest_rows(c, 40 if c <= 472 else 8, c)
     qs = np.asarray([0.0, 0.01, 0.5, 0.99, 1.0], np.float32)
     got = _plain(mean, weight, mn, mx, qs)
     pallas = np.asarray(jpd.quantiles_rows(

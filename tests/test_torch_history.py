@@ -6,6 +6,8 @@ The same numpy inputs, made from a seed, go through both packages:
    the XLA chain `_merge_windows_xla` and the Pallas kernel in interpret
    mode: p in {10, 14}, ragged N and W, an all-zero row, a step that
    selects nothing, NaN and negative mask entries, registers over 0..63;
+   and its row-index form against `_take` then the same two, repeated
+   and clamped indices included, on a ring of 12,300 columns at p = 4;
 2. `HistorySpec` geometry and the empty ring, byte for byte;
 3. archived frames replayed through `record_frame` into a JAX and a port
    writer over enough intervals to roll every tier, with evictions and
@@ -98,6 +100,39 @@ def test_k3_plain_matches_xla_and_pallas_byte_exact(p, n, w, s):
     assert not got[:, 1].any() and not got[0].any()
     dense = hll.unpack_registers_np(got, p)
     np.testing.assert_array_equal(dense[:, 2], regs.max(axis=1))
+
+
+@pytest.mark.parametrize("p,r,w,s", [
+    (10, 6, 9, 4), (14, 5, 13, 5),
+    (4, 3, 12_300, 3)])     # many of the kernel's 512-column chunks
+def test_k3_plain_with_row_index_matches_take_then_merge(p, r, w, s):
+    """K3's row-index form: the plain version with idx (repeated rows,
+    and indices below 0 and past the ring, which clamp) against the
+    range program's gather (`_take`, mode="clip") followed by the XLA
+    chain and the Pallas kernel in interpret mode, byte-exact."""
+    rng = np.random.default_rng(10 * p + r)
+    regs = rng.integers(0, 64, (r, w, 1 << p)).astype(np.uint8)
+    regs[1] = 0                                   # all-zero row
+    rows = hll.pack_registers_np(regs, p)
+    idx = np.asarray([2, 0, 2, -5, r + 3, r - 1, 1, 0], np.int32)
+    sel = (rng.uniform(size=(s, w)) < 0.2).astype(np.float32)
+    sel[0] = 0.0                                  # selects nothing
+    sel[1, :2] = np.nan, -1.0                     # never selected
+    sel[-1] = 1.0                                 # every column
+    taken = jstep._take(jnp.asarray(rows), jnp.asarray(idx))
+    want = np.asarray(jmerge._merge_windows_xla(
+        taken, jnp.asarray(sel), precision=p))
+    got = cuda_history.merge_windows_packed(
+        torch.from_numpy(rows), torch.from_numpy(sel), precision=p,
+        idx=torch.from_numpy(idx)).numpy()
+    assert got.shape == (idx.size, s, rows.shape[-1])
+    pal = np.asarray(pallas_history.merge_windows_packed(
+        taken, jnp.asarray(sel), precision=p, interpret=True))
+    assert got.tobytes() == want.tobytes() == pal.tobytes()
+    assert not got[:, 0].any()
+    clamped = np.clip(idx, 0, r - 1)
+    np.testing.assert_array_equal(hll.unpack_registers_np(got[:, -1], p),
+                                  regs[clamped].max(axis=1))
 
 
 # -- 2. geometry ---------------------------------------------------------------

@@ -34,6 +34,10 @@ SMALL = dict(counter_capacity=64, gauge_capacity=32, status_capacity=8,
              set_capacity=16, histo_capacity=32, hll_precision=8,
              temp_cells=16)
 WIDE = dict(SMALL, counter_capacity=1 << 16, set_capacity=1 << 13)
+# the widths the card serves by walking rows in place (3,928 digest
+# cells; 12,288 HLL words a row)
+WIDE_DIGEST = dict(SMALL, compression=2400.0)
+P16 = dict(SMALL, hll_precision=16)
 
 
 def _specs(kw):
@@ -133,8 +137,10 @@ def _hot_batch(rng, spec, b=128):
 
 
 @pytest.mark.parametrize("kw,hot", [(SMALL, False), (WIDE, False),
-                                    (SMALL, True)],
-                         ids=["small", "multi_block", "hot"])
+                                    (SMALL, True), (WIDE_DIGEST, True),
+                                    (P16, True)],
+                         ids=["small", "multi_block", "hot", "wide_digest",
+                              "p16"])
 def test_plain_kernel_matches_pallas_interpret_byte_exact(kw, hot):
     jspec, tspec = _specs(kw)
     rng = np.random.default_rng(0)
@@ -180,29 +186,35 @@ def test_plain_kernel_duplicate_slot_ordering():
     assert jhll.unpack_registers_np(got["hll"][:1], 8)[0, 5] == 7
 
 
-@pytest.mark.parametrize("kw,refused", [
-    ({}, None),
-    (dict(hll_precision=15, compression=2200.0), None),
-    (dict(hll_precision=16), "shared memory"),
-    (dict(compression=2400.0), "shared memory"),
+@pytest.mark.parametrize("kw,route", [
+    ({}, "staged"),
+    (dict(hll_precision=15, compression=2200.0), "staged"),
+    (dict(hll_precision=16), "in_place"),
+    (dict(compression=2400.0), "in_place"),
     (dict(set_capacity=1 << 20), "32-bit offsets"),
 ], ids=["default", "widest", "p16", "wide_digest", "offsets"])
-def test_kernel_refuses_widths_it_cannot_take(kw, refused):
-    """The CUDA branch checks the spec before it launches: a set row
-    (hll_precision 16) or a digest row (3,928 cells at compression 2,400)
-    too wide to stage in a block's shared memory, and targets past 32-bit
-    offsets, raise ValueError; the default widths and the widest that fit
-    pass."""
+def test_kernel_stages_or_walks_rows_in_place_and_refuses_offsets(kw,
+                                                                  route):
+    """The CUDA branch picks its kernel from the spec before it launches:
+    rows that fit a block's shared memory (the default widths, and the
+    widest: hll_precision 15 with 3,624 digest cells) are staged; a set
+    row at hll_precision 16 or a digest row of 3,928 cells (compression
+    2,400) is walked in place, with the stages alone in shared memory;
+    only targets past 32-bit offsets raise ValueError."""
     spec = tstate_mod.TableSpec(**kw)
     need = cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells)
-    if refused is None:
-        cuda_ingest._check_spec(spec)
-        assert need <= cuda_ingest.SMEM_PER_BLOCK
-        if not kw:
-            assert need == 83_200          # 2 blocks an SM at the defaults
+    if route == "32-bit offsets":
+        with pytest.raises(ValueError, match=route):
+            cuda_ingest._check_spec(spec)
         return
-    with pytest.raises(ValueError, match=refused):
-        cuda_ingest._check_spec(spec)
+    cuda_ingest._check_spec(spec)
+    assert cuda_ingest.rows_in_place(spec) == (route == "in_place")
+    assert (need <= cuda_ingest.SMEM_PER_BLOCK) == (route == "staged")
+    if not kw:
+        assert need == 83_200              # 2 blocks an SM at the defaults
+    # in place, a block holds the walks' stages alone, at any width
+    assert cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells,
+                                    in_place=True) == 58_240
 
 
 def test_port_prologue_matches_jax_prologue():

@@ -45,6 +45,17 @@
 //   answer depends on where the empties sit. Such a row is re-staged in the
 //   plain version's all-cells order (every cell, empties keyed +inf) and
 //   searched with the same upper_bound loop as torch.searchsorted.
+// - Rows wider than 2,048 cells (compression past ~1,278) take a second
+//   kernel. A warp's staging is 12 bytes a cell, so four warps of a
+//   2,056-cell row already need 160 KB of shared memory, and one warp of
+//   a 3,928-cell row 48 KB: at most four warps an SM, too few to cover
+//   the loads' latency, and nothing past ~16,000 cells. So every wide row
+//   stages in global scratch instead, one slab a warp (cp * 8 + C * 4
+//   bytes, which the wrapper allocates), through the same code: the
+//   slab is in L1/L2 while the warp works on it. A fixed grid of 2,112
+//   warps (fewer if the slabs would pass 256 MB) walks the rows, so the
+//   scratch does not grow with the row count. One path serves every
+//   width up to 2^30 cells, where the key slots stop fitting an int.
 // The TPU's row tiles and its full-width bitonic network are not carried
 // over: they exist for the TPU's static vector addressing.
 
@@ -60,6 +71,10 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;          // rows (warps) per block
 constexpr int REG_MAX = 512;      // largest sort kept in registers
 constexpr u64 PAD = ~0ull;        // sorts after every real key
+constexpr int SMEM_CELLS = 2048;  // widest row staged in shared memory
+constexpr int MAX_CELLS = 1 << 30;        // key slots stay a 32-bit int
+constexpr long long kWideWarps = 132 * 16;  // the wide kernel's grid
+constexpr long long kScratchBytes = 256LL << 20;  // and its slabs' cap
 
 // order-preserving bits of a mean: every NaN is one value above +inf (as
 // torch.sort orders them), -0 equals +0
@@ -318,8 +333,9 @@ __device__ void row_in_registers(u64* keys, const float* wst, int n,
   emit(count_le, xy, n, KPL, tot, mnv, mxv, qs, orow, Q, lane);
 }
 
-// Rows of more than 512 keys (C > 512): bitonic over the warp's shared
-// slice, n_pad/2 pairs a stage, __syncwarp between stages.
+// Rows of more than 512 keys (C > 512): bitonic over the warp's staging
+// slice (shared memory, or the wide kernel's slab), n_pad/2 pairs a
+// stage, __syncwarp between stages.
 __device__ void row_in_shared(u64* keys, const float* wst, int n,
                               float mnv, float mxv,
                               const float* __restrict__ qs, float* orow,
@@ -365,28 +381,13 @@ __device__ void row_in_shared(u64* keys, const float* wst, int n,
   emit([](float) { return -1; }, xy, n, 1, tot, mnv, mxv, qs, orow, Q, lane);
 }
 
+// One row, by one warp, staged in keys/wst (shared memory in the fast
+// kernel, the warp's global slab in the wide one).
 template <int V>
-__global__ void __launch_bounds__(32 * WARPS)
-digest_quantiles_kernel(const float* __restrict__ mean,
-                        const float* __restrict__ weight,
-                        const float* __restrict__ mn,
-                        const float* __restrict__ mx,
-                        const float* __restrict__ qs,
-                        float* __restrict__ out, long long rows, int C,
-                        int cp, int Q) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long r = (long long)blockIdx.x * WARPS + warp;
-  if (r >= rows) return;
-  const int c2 = (C + 1) & ~1;
-  u64* keys = reinterpret_cast<u64*>(
-      smem + (size_t)warp * ((size_t)cp * 8 + (size_t)c2 * 4));
-  float* wst = reinterpret_cast<float*>(keys + cp);
-  const float* mrow = mean + r * C;
-  const float* wrow = weight + r * C;
-  float* orow = out + r * Q;
-  const float mnv = mn[r], mxv = mx[r];
-
+__device__ __forceinline__ void quantile_row(
+    const float* __restrict__ mrow, const float* __restrict__ wrow, int C,
+    float mnv, float mxv, const float* __restrict__ qs, float* orow, int Q,
+    int lane, u64* keys, float* wst) {
   bool special;
   int n = stage_row<V, false>(mrow, wrow, C, lane, keys, wst, &special);
   if (special) {
@@ -412,10 +413,89 @@ digest_quantiles_kernel(const float* __restrict__ mean,
     row_in_shared(keys, wst, n, mnv, mxv, qs, orow, Q, lane);
 }
 
+// Bytes of one warp's staging: cp 64-bit key slots (a power of two >= C),
+// then C weights rounded up to an even count.
+__host__ __device__ inline size_t warp_bytes(int C, int cp) {
+  return (size_t)cp * 8 + (size_t)((C + 1) & ~1) * 4;
+}
+
+template <int V>
+__global__ void __launch_bounds__(32 * WARPS)
+digest_quantiles_kernel(const float* __restrict__ mean,
+                        const float* __restrict__ weight,
+                        const float* __restrict__ mn,
+                        const float* __restrict__ mx,
+                        const float* __restrict__ qs,
+                        float* __restrict__ out, long long rows, int C,
+                        int cp, int Q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = (long long)blockIdx.x * WARPS + warp;
+  if (r >= rows) return;
+  u64* keys = reinterpret_cast<u64*>(smem + (size_t)warp * warp_bytes(C, cp));
+  float* wst = reinterpret_cast<float*>(keys + cp);
+  quantile_row<V>(mean + r * C, weight + r * C, C, mn[r], mx[r], qs,
+                  out + r * Q, Q, lane, keys, wst);
+}
+
+// Rows wider than SMEM_CELLS: a fixed grid of warps, each staging in its
+// own slab of `scratch` (generic loads and stores, which __syncwarp orders
+// within the warp as it orders shared memory), walks rows gw, gw + warps,
+// ...
+template <int V>
+__global__ void __launch_bounds__(32 * WARPS)
+digest_quantiles_wide_kernel(const float* __restrict__ mean,
+                             const float* __restrict__ weight,
+                             const float* __restrict__ mn,
+                             const float* __restrict__ mx,
+                             const float* __restrict__ qs,
+                             float* __restrict__ out, long long rows, int C,
+                             int cp, int Q, unsigned char* scratch) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long warps = (long long)gridDim.x * WARPS;
+  u64* keys = reinterpret_cast<u64*>(scratch + gw * warp_bytes(C, cp));
+  float* wst = reinterpret_cast<float*>(keys + cp);
+  for (long long r = gw; r < rows; r += warps) {
+    quantile_row<V>(mean + r * C, weight + r * C, C, mn[r], mx[r], qs,
+                    out + r * Q, Q, lane, keys, wst);
+    __syncwarp();  // the slab is restaged by the next row
+  }
+}
+
+int key_slots(int C) {  // a warp's key slots: a power of two >= C, >= 32
+  int cp = 32;
+  while (cp < C) cp <<= 1;
+  return cp;
+}
+
+// The wide kernel's warps: enough to fill the card, no more than the rows
+// need, and their slabs within kScratchBytes (but at least one block).
+long long wide_warps(long long rows, int C) {
+  const long long slab = (long long)warp_bytes(C, key_slots(C));
+  long long w = kScratchBytes / slab;
+  if (w > kWideWarps) w = kWideWarps;
+  if (w > rows) w = rows;
+  w = (w + WARPS - 1) / WARPS * WARPS;
+  return w < WARPS ? WARPS : w;
+}
+
 template <int V>
 int launch(const void* mean, const void* weight, const void* mn,
            const void* mx, const void* qs, void* out, long long rows, int C,
-           int cp, int Q, size_t smem, cudaStream_t stream) {
+           int Q, void* scratch, cudaStream_t stream) {
+  const int cp = key_slots(C);
+  if (C > SMEM_CELLS) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const long long blocks = wide_warps(rows, C) / WARPS;
+    digest_quantiles_wide_kernel<V><<<(unsigned)blocks, 32 * WARPS, 0,
+                                      stream>>>(
+        (const float*)mean, (const float*)weight, (const float*)mn,
+        (const float*)mx, (const float*)qs, (float*)out, rows, C, cp, Q,
+        (unsigned char*)scratch);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)WARPS * warp_bytes(C, cp);
   static size_t granted = 48 * 1024;   // raised once per larger width
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -433,20 +513,25 @@ int launch(const void* mean, const void* weight, const void* mn,
 
 }  // namespace
 
+// Bytes of global scratch a call over `rows` rows of C cells needs: none
+// up to SMEM_CELLS cells, else one slab a warp of the wide kernel.
+extern "C" long long vt_digest_quantiles_scratch(long long rows, int C) {
+  if (rows <= 0 || C <= SMEM_CELLS || C > MAX_CELLS) return 0;
+  return wide_warps(rows, C) * (long long)warp_bytes(C, key_slots(C));
+}
+
 extern "C" int vt_digest_quantiles(const void* mean, const void* weight,
                                    const void* mn, const void* mx,
                                    const void* qs, void* out, long long rows,
-                                   int C, int Q, void* stream) {
+                                   int C, int Q, void* scratch,
+                                   void* stream) {
+  if (C <= 0 || C > MAX_CELLS) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaGetLastError();
-  int cp = 32;                       // a warp's key slots: pow2 >= C
-  while (cp < C) cp <<= 1;
-  const size_t smem =
-      (size_t)WARPS * ((size_t)cp * 8 + (size_t)((C + 1) & ~1) * 4);
   const bool vec = C % 4 == 0 && ((uintptr_t)mean & 15) == 0 &&
                    ((uintptr_t)weight & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return vec ? launch<4>(mean, weight, mn, mx, qs, out, rows, C, cp, Q, smem,
+  return vec ? launch<4>(mean, weight, mn, mx, qs, out, rows, C, Q, scratch,
                          s)
-             : launch<1>(mean, weight, mn, mx, qs, out, rows, C, cp, Q, smem,
+             : launch<1>(mean, weight, mn, mx, qs, out, rows, C, Q, scratch,
                          s);
 }

@@ -58,6 +58,17 @@
 // __match_any_sync is slow on 32 mostly distinct values, which is why the
 // long walks, where it would run every step, use shared tags instead.
 // One launch covers all lanes: the grid is split by lane.
+//
+// Wide rows (hll_precision 16, or more than 3,630 digest cells, whose
+// staged rows pass the 227 KB a block may have) launch the same kernel
+// with kInPlace set. A long run's walk then reads and writes the slot's
+// row where it lies in global memory: the run's warp is the only one
+// that touches that slot, and __syncwarp orders one lane's store before
+// another's load. The shared tags that pick a cell's or a group's turn
+// become __match_any_sync (lowest lane first, as before); the stages stay
+// in shared memory. Every chain keeps its one owner and its stream order,
+// so the bytes are those of the staged walk. This is the slow path of
+// C-1: each segment's first load goes to L2 or HBM, not shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,6 +87,7 @@ constexpr int kSlotStep = 32 * kSlotUnroll;  // long run's staged walk
 constexpr int kStages = 2;            // steps of a walk in flight
 constexpr int kCellStages = 4;        // the cell walk's: two windows of two
 constexpr int kMaxDevices = 64;       // devices whose grant is remembered
+constexpr size_t kMaxSmem = 227 * 1024;  // the most an sm_90 block has
 constexpr int kRow = kSlotStep + 4;   // a staged stream's row: 16-byte
                                       // aligned, and rows 0-4 start in
                                       // five different banks
@@ -267,26 +279,38 @@ __device__ __forceinline__ long long run_end(const int32_t* __restrict__ slot,
 // words, stages of two streams, its row and an owner tag per 16-register
 // group. Every warp reserves the largest, so a block needs
 // block_smem_bytes: 83 KB at the default widths (p = 14, 472 cells), which
-// allows 2 blocks an SM; past the 227 KB a block may have (p = 16, or
-// more than 3,630 cells) the launch is refused.
+// allows 2 blocks an SM. Past the 227 KB a block may have (p = 16, or
+// more than 3,630 cells) the rows stay in place (kInPlace): the walks
+// read and write them in global memory, pick a cell's or a group's turn
+// by __match_any_sync in place of the shared tags, and a block needs the
+// stages alone (57 KB).
 __host__ __device__ inline long long up4(long long x) { return (x + 3) & ~3LL; }
 __host__ __device__ inline long long slot_warp_floats() {
   return 7 * kStages * kRow;
 }
-__host__ __device__ inline long long cell_warp_floats(long long cells) {
-  return up4(3 * cells) + 3 * kCellStages * kRow + up4(2 * kSlotStep + 1);
+__host__ __device__ inline long long cell_warp_floats(long long cells,
+                                                      bool in_place) {
+  return (in_place ? 0 : up4(3 * cells)) + 3 * kCellStages * kRow +
+         up4(2 * kSlotStep + 1);
 }
-__host__ __device__ inline long long set_warp_floats(long long words) {
-  return 64 + 2 * kStages * kRow + up4(words) + up4(words / 3);
+__host__ __device__ inline long long set_warp_floats(long long words,
+                                                     bool in_place) {
+  return 64 + 2 * kStages * kRow +
+         (in_place ? 0 : up4(words) + up4(words / 3));
 }
-inline long long warp_smem_floats(long long words, long long cells) {
+inline long long warp_smem_floats(long long words, long long cells,
+                                  bool in_place) {
   long long wf = slot_warp_floats();
-  if (cell_warp_floats(cells) > wf) wf = cell_warp_floats(cells);
-  if (set_warp_floats(words) > wf) wf = set_warp_floats(words);
+  if (cell_warp_floats(cells, in_place) > wf)
+    wf = cell_warp_floats(cells, in_place);
+  if (set_warp_floats(words, in_place) > wf)
+    wf = set_warp_floats(words, in_place);
   return wf;
 }
-inline long long block_smem_bytes(long long words, long long cells) {
-  return warp_smem_floats(words, cells) * kWarps * (long long)sizeof(float);
+inline long long block_smem_bytes(long long words, long long cells,
+                                  bool in_place) {
+  return warp_smem_floats(words, cells, in_place) * kWarps *
+         (long long)sizeof(float);
 }
 
 // -- counter: ordered sums per slot -------------------------------------------
@@ -410,6 +434,7 @@ __device__ __forceinline__ void apply_groups(uint32_t* __restrict__ words,
   __syncwarp();
 }
 
+template <bool kInPlace>
 __device__ __forceinline__ void set_lane(const IngestArgs& a, float* sm,
                                          long long base, int lane) {
   const long long n = a.n[3];
@@ -426,21 +451,24 @@ __device__ __forceinline__ void set_lane(const IngestArgs& a, float* sm,
                  (int32_t)(r.key * a.hll_words) + 3 * (reg >> 4), lane);
   }
   if (r.long_lane < 0) return;
-  // the long run: the slot's row staged in shared memory, 256 entries a
-  // step (the next steps copying in meanwhile), applied 32 at a time; a
-  // group met again later is read after the earlier store (__syncwarp
-  // orders them)
+  // the long run: the slot's row staged in shared memory (or, in place,
+  // its words in global memory: no other warp touches the slot), 256
+  // entries a step (the next steps copying in meanwhile), applied 32 at a
+  // time; a group met again later is read after the earlier store
+  // (__syncwarp orders them)
   const int32_t s = __shfl_sync(kFull, r.key, r.long_lane);
   const long long start = base + r.long_lane;
   const long long first = start & ~3LL;  // steps start 16-byte aligned
   constexpr int kStage = 2 * kRow;       // register, rho
   float* stages = sm + 64;
-  uint32_t* row = (uint32_t*)(stages + kStages * kStage);
-  int32_t* tag = (int32_t*)(row + up4(a.hll_words));
   uint32_t* grow = a.hll + (long long)s * a.hll_words;
+  uint32_t* staged = (uint32_t*)(stages + kStages * kStage);
+  uint32_t* row = kInPlace ? grow : staged;
+  int32_t* tag = (int32_t*)(staged + up4(a.hll_words));  // staged only
   const void* src[2] = {a.s_reg, a.s_rho};
   stage_first<2>(stages, src, first, n, lane);
-  for (long long w = lane; w < a.hll_words; w += 32) row[w] = grow[w];
+  if (!kInPlace)
+    for (long long w = lane; w < a.hll_words; w += 32) row[w] = grow[w];
   const long long end = run_end(a.s_slot, start, n, s, lane);
   for (int step = 0;; ++step) {
     const long long b = first + (long long)step * kSlotStep;
@@ -458,9 +486,17 @@ __device__ __forceinline__ void set_lane(const IngestArgs& a, float* sm,
       const int g = reg >> 4;
       bool pending = e >= e0 && e < e1;
       while (__any_sync(kFull, pending)) {
-        if (pending) tag[g] = lane;
-        __syncwarp();
-        if (pending && tag[g] == lane) {
+        bool mine;
+        if constexpr (kInPlace) {
+          const unsigned peers =
+              __match_any_sync(kFull, pending ? g : -lane - 1);
+          mine = pending && __ffs(peers) - 1 == lane;
+        } else {
+          if (pending) tag[g] = lane;
+          __syncwarp();
+          mine = pending && tag[g] == lane;
+        }
+        if (mine) {
           uint32_t* w = row + 3 * g;
           uint32_t a0 = w[0], a1 = w[1], a2 = w[2];
           hll_max(a0, a1, a2, reg, rho);
@@ -475,7 +511,8 @@ __device__ __forceinline__ void set_lane(const IngestArgs& a, float* sm,
     if (end <= b + kSlotStep) break;
   }
   cp_async_wait<0>();
-  for (long long w = lane; w < a.hll_words; w += 32) grow[w] = row[w];
+  if (!kInPlace)
+    for (long long w = lane; w < a.hll_words; w += 32) grow[w] = row[w];
 }
 
 // -- histogram: the per-slot scalar chains --------------------------------------
@@ -659,6 +696,7 @@ __device__ __forceinline__ void add_groups(float* __restrict__ tw,
 // segment L (and L + 32, ... in later rounds) and adds it in stream order.
 // Segments of one cell in one round take turns, earliest first, so each
 // (slot, cell) chain keeps one owner at a time and its stream order.
+template <bool kInPlace>
 __device__ __forceinline__ void warp_cells_run(const IngestArgs& a,
                                                float* sm, long long start,
                                                long long n, int32_t s,
@@ -668,19 +706,21 @@ __device__ __forceinline__ void warp_cells_run(const IngestArgs& a,
   constexpr int kStage = 3 * kRow;  // cell, w, w * v
   float* gw = a.h_w + (long long)s * cells;
   float* gm = a.h_wm + (long long)s * cells;
-  float* rw = sm;
-  float* rm = sm + cells;
-  int32_t* tag = (int32_t*)(sm + 2 * cells);
-  float* stages = sm + up4(3 * cells);
+  // in place, the row is the slot's own (no other warp touches it)
+  float* rw = kInPlace ? gw : sm;
+  float* rm = kInPlace ? gm : sm + cells;
+  int32_t* tag = (int32_t*)(sm + 2 * cells);  // staged only
+  float* stages = kInPlace ? sm : sm + up4(3 * cells);
   int32_t* seg = (int32_t*)(stages + kCellStages * kStage);
   const void* src[3] = {a.h_cell, a.h_wt, a.h_wv};
   const long long first = start & ~3LL;  // steps start 16-byte aligned
   stage_async<3>(stages, src, first, n, lane);
   stage_async<3>(stages + kStage, src, first + kSlotStep, n, lane);
-  for (long long c = lane; c < cells; c += 32) {
-    rw[c] = gw[c];
-    rm[c] = gm[c];
-  }
+  if (!kInPlace)
+    for (long long c = lane; c < cells; c += 32) {
+      rw[c] = gw[c];
+      rm[c] = gm[c];
+    }
   const long long end = run_end(a.h_slot, start, n, s, lane);
   const unsigned below = (1u << lane) - 1u;
   for (int win = 0;; ++win) {
@@ -727,11 +767,19 @@ __device__ __forceinline__ void warp_cells_run(const IngestArgs& a,
           ? __float_as_int((lo < kSlotStep ? buf0 : buf1)[lo & (kSlotStep - 1)])
           : 0;
       while (__any_sync(kFull, pending)) {
-        if (pending) tag[c] = 32;
-        __syncwarp();
-        if (pending) atomicMin(&tag[c], lane);
-        __syncwarp();
-        if (pending && tag[c] == lane) {
+        bool mine;
+        if constexpr (kInPlace) {
+          const unsigned peers =
+              __match_any_sync(kFull, pending ? c : -lane - 1);
+          mine = pending && __ffs(peers) - 1 == lane;
+        } else {
+          if (pending) tag[c] = 32;
+          __syncwarp();
+          if (pending) atomicMin(&tag[c], lane);
+          __syncwarp();
+          mine = pending && tag[c] == lane;
+        }
+        if (mine) {
           float aw = rw[c], am = rm[c];
 #pragma unroll 4
           for (int e = lo; e < hi; ++e) {
@@ -750,12 +798,14 @@ __device__ __forceinline__ void warp_cells_run(const IngestArgs& a,
     if (end <= b + kWin) break;
   }
   cp_async_wait<0>();
-  for (long long c = lane; c < cells; c += 32) {
-    gw[c] = rw[c];
-    gm[c] = rm[c];
-  }
+  if (!kInPlace)
+    for (long long c = lane; c < cells; c += 32) {
+      gw[c] = rw[c];
+      gm[c] = rm[c];
+    }
 }
 
+template <bool kInPlace>
 __device__ __forceinline__ void cell_lane(const IngestArgs& a,
                                           float* __restrict__ sm,
                                           long long base, int lane) {
@@ -768,10 +818,11 @@ __device__ __forceinline__ void cell_lane(const IngestArgs& a,
                (int32_t)(r.key * a.cells) + a.h_cell[ic], a.h_wt[ic],
                a.h_wv[ic], lane);
   if (r.long_lane >= 0)
-    warp_cells_run(a, sm, base + r.long_lane, n,
+    warp_cells_run<kInPlace>(a, sm, base + r.long_lane, n,
                    __shfl_sync(kFull, r.key, r.long_lane), lane);
 }
 
+template <bool kInPlace>
 __global__ void __launch_bounds__(kThreads)
 fused_ingest_kernel(IngestArgs a) {
   extern __shared__ float smem[];
@@ -795,13 +846,13 @@ fused_ingest_kernel(IngestArgs a) {
                 lane);
       return;
     case 3:
-      set_lane(a, mine, base, lane);
+      set_lane<kInPlace>(a, mine, base, lane);
       return;
     case 4:
       histo_slot_lane(a, mine, base, lane);
       return;
     default:
-      cell_lane(a, mine, base, lane);
+      cell_lane<kInPlace>(a, mine, base, lane);
       return;
   }
 }
@@ -810,7 +861,9 @@ fused_ingest_kernel(IngestArgs a) {
 
 // p: 30 device pointers (14 state leaves, then 16 streams, in the
 // IngestArgs order); d: the five lane lengths (counter, gauge, status,
-// set, histogram), hll words per row, digest cells per row.
+// set, histogram), hll words per row, digest cells per row, and 1 to
+// keep the rows in place (0 to stage them, which must fit the 227 KB a
+// block may have).
 extern "C" int vt_fused_ingest(void* const* p, const long long* d,
                                void* stream) {
   IngestArgs a;
@@ -854,29 +907,35 @@ extern "C" int vt_fused_ingest(void* const* p, const long long* d,
   a.block_start[kLanes] = blocks;
   a.hll_words = d[5];
   a.cells = d[6];
-  a.warp_floats = (int)warp_smem_floats(a.hll_words, a.cells);
-  const size_t smem = (size_t)block_smem_bytes(a.hll_words, a.cells);
+  const bool in_place = d[7] != 0;
+  a.warp_floats = (int)warp_smem_floats(a.hll_words, a.cells, in_place);
+  const size_t smem =
+      (size_t)block_smem_bytes(a.hll_words, a.cells, in_place);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaGetLastError();
   // past 48 KB a kernel must be granted its dynamic shared memory, once
-  // per device for the largest size asked so far
-  static size_t granted[kMaxDevices] = {};
+  // per device and kernel for the largest size asked so far
+  static size_t granted[2][kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > granted[dev])) {
-    e = cudaFuncSetAttribute(fused_ingest_kernel,
+  const auto kernel =
+      in_place ? fused_ingest_kernel<true> : fused_ingest_kernel<false>;
+  if (smem > 48 * 1024 &&
+      (dev >= kMaxDevices || smem > granted[in_place][dev])) {
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    if (dev < kMaxDevices) granted[dev] = smem;
+    if (dev < kMaxDevices) granted[in_place][dev] = smem;
   }
-  fused_ingest_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory, in bytes, that a launch with these widths asks
-// of each block.
+// of each block, rows staged (in_place 0) or in place (1).
 extern "C" long long vt_fused_ingest_smem(long long hll_words,
-                                          long long cells) {
-  return block_smem_bytes(hll_words, cells);
+                                          long long cells, int in_place) {
+  return block_smem_bytes(hll_words, cells, in_place != 0);
 }

@@ -45,10 +45,12 @@ from veneur_tpu_torch.utils.numerics import twofloat_merge
 MAX_STEPS = 32
 
 
-def merge_windows(rows, sel, *, precision: int):
-    """Masked window merge: i32[N, W, nw] packed rows, f32[S, W] masks ->
-    i32[N, S, nw], through kernel K3 (its plain version on the CPU)."""
-    return cuda_history.merge_windows_packed(rows, sel, precision=precision)
+def merge_windows(rows, sel, *, precision: int, idx=None):
+    """Masked window merge: i32[R, W, nw] packed rows, f32[S, W] masks,
+    optional i32[N] row index -> i32[N, S, nw], through kernel K3 (its
+    plain version on the CPU), which reads the indexed rows in place."""
+    return cuda_history.merge_windows_packed(rows, sel, precision=precision,
+                                             idx=idx)
 
 
 def _fold_pair(hi_rows, lo_rows, sel):
@@ -87,8 +89,8 @@ def range_merge_core(hist: HistoryState, qs, cidx, gidx, stidx, setidx,
     gauge = _lww(_take(hist.gauge, gidx), sel, rank)
     status = _lww(_take(hist.status, stidx), sel, rank)
 
-    merged = merge_windows(_take(hist.hll, setidx), sel,
-                           precision=hspec.hll_precision)
+    merged = merge_windows(hist.hll, sel, precision=hspec.hll_precision,
+                           idx=setidx)
     est = hll_ops.estimate_packed_rows(merged,
                                        precision=hspec.hll_precision)
 

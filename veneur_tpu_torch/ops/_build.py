@@ -107,12 +107,14 @@ def load() -> ctypes.CDLL:
     lib.vt_fused_ingest.argtypes = [ctypes.POINTER(vp),
                                     ctypes.POINTER(ll), vp]
     lib.vt_fused_ingest.restype = ctypes.c_int
-    lib.vt_fused_ingest_smem.argtypes = [ll, ll]
+    lib.vt_fused_ingest_smem.argtypes = [ll, ll, ctypes.c_int]
     lib.vt_fused_ingest_smem.restype = ll
-    lib.vt_digest_quantiles.argtypes = [vp, vp, vp, vp, vp, vp,
-                                        ll, ctypes.c_int, ctypes.c_int, vp]
+    lib.vt_digest_quantiles.argtypes = [vp, vp, vp, vp, vp, vp, ll,
+                                        ctypes.c_int, ctypes.c_int, vp, vp]
     lib.vt_digest_quantiles.restype = ctypes.c_int
-    lib.vt_merge_windows.argtypes = [vp, vp, vp, ll, ll, ll, ll,
+    lib.vt_digest_quantiles_scratch.argtypes = [ll, ctypes.c_int]
+    lib.vt_digest_quantiles_scratch.restype = ll
+    lib.vt_merge_windows.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, ll,
                                      ctypes.c_int, vp]
     lib.vt_merge_windows.restype = ctypes.c_int
     return lib

@@ -8,9 +8,14 @@ kernel veneur_tpu/ops/pallas_digest.py quantiles_rows; the CUDA source is
 csrc/digest_quantiles.cu.
 
 The kernel gives each row one warp that sorts only the row's live cells
-(the design is in the note atop the CUDA source). For a CPU tensor the
-wrapper runs `quantiles_rows_plain`; for a CUDA tensor it launches the
-kernel or raises. `launches` counts kernel launches and nothing else.
+(the design is in the note atop the CUDA source). Rows of up to
+`SMEM_CELLS` cells stage in shared memory; wider rows go to a second
+kernel that stages each warp's row in a slab of global scratch the
+wrapper allocates. For a CPU tensor the wrapper runs
+`quantiles_rows_plain`; for a CUDA tensor it launches one of the two
+kernels, once a call, or raises. `launches` counts launches of the
+shared-memory kernel, `wide_launches` those of the wide-row kernel, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ import math
 import torch
 
 launches = 0
+wide_launches = 0
 
-MAX_CELLS = 2048   # a warp stages a row in 24 KB of shared memory
+SMEM_CELLS = 2048    # widest row a warp stages in shared memory (24 KB)
+MAX_CELLS = 1 << 30  # the kernels' key slots and cell ranks are 32-bit
 
 
 def quantiles_rows_plain(mean, weight, mn, mx, qs) -> torch.Tensor:
@@ -61,7 +68,7 @@ def _check(name, t, dtype, shape, device):
 
 def quantiles_rows(mean, weight, mn, mx, qs) -> torch.Tensor:
     """f32[R, C] means/weights, f32[R] min/max, f32[Q] qs -> f32[R, Q]."""
-    global launches
+    global launches, wide_launches
     if mean.device.type == "cpu":
         return quantiles_rows_plain(mean, weight, mn, mx, qs)
     if mean.device.type != "cuda":
@@ -74,17 +81,25 @@ def quantiles_rows(mean, weight, mn, mx, qs) -> torch.Tensor:
                            ("qs", qs, (q,))):
         _check(name, t, f32, shape, dev)
     if not 0 < c <= MAX_CELLS:
-        raise ValueError(f"digest rows of {c} cells: kernel takes 1..."
-                         f"{MAX_CELLS}")
+        raise ValueError(f"digest rows of {c} cells: the kernels index "
+                         f"cells with 32-bit ints and take 1...{MAX_CELLS}")
     out = torch.empty((r, q), dtype=f32, device=dev)
     if r == 0 or q == 0:
         return out
     from veneur_tpu_torch.ops import _build
     lib = _build.load()
+    scratch = None
+    if c > SMEM_CELLS:
+        scratch = torch.empty(lib.vt_digest_quantiles_scratch(r, c),
+                              dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.vt_digest_quantiles(
         mean.data_ptr(), weight.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-        qs.data_ptr(), out.data_ptr(), r, c, q, stream)
+        qs.data_ptr(), out.data_ptr(), r, c, q,
+        None if scratch is None else scratch.data_ptr(), stream)
     _build.check(rc, "digest_quantiles launch")
-    launches += 1
+    if scratch is None:
+        launches += 1
+    else:
+        wide_launches += 1
     return out

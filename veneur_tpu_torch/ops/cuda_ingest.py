@@ -18,14 +18,18 @@ For CPU tensors the wrapper runs `fused_ingest_plain`; for CUDA tensors it
 launches the kernel, or raises. The kernel needs no plan beyond the
 streams: it groups the set lane by 16-register group and the histogram
 lane by (slot, cell) itself, on the card. It stages a hot key's row in
-shared memory, so it refuses (ValueError) widths whose rows do not fit
-a block's: hll_precision 16, or more than 3,630 digest cells. `launches`
-counts kernel launches only.
+shared memory; at widths whose rows do not fit a block's (hll_precision
+16, or more than 3,630 digest cells) the wrapper launches the kernel's
+in-place instantiation instead, which walks such a row where it lies in
+global memory (`rows_in_place`). It refuses (ValueError) only tables
+past 32-bit offsets. `launches` counts launches of the staging kernel,
+`wide_launches` those of the in-place one, and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -34,6 +38,7 @@ import torch
 from veneur_tpu_torch.ops import hll as hll_ops
 
 launches = 0
+wide_launches = 0
 
 BIG = 1 << 30   # sentinel slot of dropped rows: sorts after every valid slot
 
@@ -160,34 +165,36 @@ def _up4(x: int) -> int:
     return (x + 3) & ~3
 
 
-def shared_bytes(hll_words: int, cells: int) -> int:
+def shared_bytes(hll_words: int, cells: int, in_place: bool = False) -> int:
     """Dynamic shared memory the kernel asks of each block at these widths
     (csrc/fused_ingest.cu block_smem_bytes): each of its 4 warps reserves
     the largest of its long walks -- the slot chain's staging, the cell
-    walk's digest row, the set walk's packed HLL row."""
+    walk's digest row, the set walk's packed HLL row; in place, the walks'
+    stages without the rows."""
+    rows = not in_place
     slot = 7 * 2 * _ROW
-    cell = _up4(3 * cells) + 3 * 4 * _ROW + _up4(2 * 256 + 1)
-    sets = 64 + 2 * 2 * _ROW + _up4(hll_words) + _up4(hll_words // 3)
+    cell = rows * _up4(3 * cells) + 3 * 4 * _ROW + _up4(2 * 256 + 1)
+    sets = 64 + 2 * 2 * _ROW + rows * (_up4(hll_words)
+                                       + _up4(hll_words // 3))
     return max(slot, cell, sets) * 4 * 4
 
 
+@functools.lru_cache(maxsize=None)
+def rows_in_place(spec) -> bool:
+    """True where a set row (hll_precision 16) or a digest row (more than
+    3,630 cells: compression above ~2,200) is too wide to stage in a
+    block's shared memory, so the in-place kernel runs."""
+    return shared_bytes(spec.hll_words, spec.total_cells) > SMEM_PER_BLOCK
+
+
 def _check_spec(spec):
-    """Refuse widths the kernel cannot take: targets past 32-bit offsets,
-    and rows too wide to stage in a block's shared memory (hll_precision
-    16, or more than 3,630 digest cells: compression above ~2,200)."""
+    """Refuse what the kernel cannot index: targets past 32-bit offsets."""
     for name, rows, width in (("hll", spec.set_capacity, spec.hll_words),
                               ("h_w", spec.histo_capacity,
                                spec.total_cells)):
         if rows * width >= 1 << 31:
             raise ValueError(f"state.{name}: the kernel indexes it with "
                              f"32-bit offsets; {rows} x {width} is too big")
-    need = shared_bytes(spec.hll_words, spec.total_cells)
-    if need > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"the kernel stages a set row ({spec.hll_words} words, "
-            f"hll_precision {spec.hll_precision}) or a digest row "
-            f"({spec.total_cells} cells) in shared memory: {need} bytes a "
-            f"block, more than the {SMEM_PER_BLOCK} a block may have")
 
 
 def _validate(state, st: IngestStreams, spec, device):
@@ -226,7 +233,7 @@ def _validate(state, st: IngestStreams, spec, device):
 def fused_ingest(state, st: IngestStreams, spec) -> None:
     """Apply the streams to `state` in place (kernel on CUDA tensors,
     plain version on CPU tensors)."""
-    global launches
+    global launches, wide_launches
     device = state.counter_acc.device
     if device.type == "cpu":
         fused_ingest_plain(state, st, spec)
@@ -239,11 +246,15 @@ def fused_ingest(state, st: IngestStreams, spec) -> None:
     ptrs = (ctypes.c_void_p * 30)(
         *[getattr(state, n).data_ptr() for n in STATE_LEAVES],
         *[t.data_ptr() for t in st])
-    dims = (ctypes.c_longlong * 7)(
+    in_place = rows_in_place(spec)
+    dims = (ctypes.c_longlong * 8)(
         st.c_slot.shape[0], st.g_slot.shape[0], st.st_slot.shape[0],
         st.s_slot.shape[0], st.h_slot.shape[0], spec.hll_words,
-        spec.total_cells)
+        spec.total_cells, in_place)
     rc = lib.vt_fused_ingest(ptrs, dims,
                              torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, "fused_ingest launch")
-    launches += 1
+    if in_place:
+        wide_launches += 1
+    else:
+        launches += 1
