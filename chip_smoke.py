@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py [--baseline]
+    python3 chip_smoke.py
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -35,13 +35,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      wide-row kernel over 16384 rows of 3,928 and of 2,056 cells with a
      flush's live counts (most rows sparse, 1% >= 60% live), held as K2
      is held;
-   (K3's row-index form and the wide-row paths run after phase 6, so that
-   phases 3-6 run alike with and without --baseline)
+   (K3's row-index form and the wide-row paths run after phase 6, with
+   phase 7)
    each with its time (CUDA events over launches at the host's pace, and
    on the card alone), the plain version's time and its
    bound (the least time the card could take: bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s of fp32, whichever is larger; for K1 also
-   its longest ordered f32 chain at 4 cycles an add over the maximum SM
+   operations over 67 TFLOP/s of fp32, whichever is larger; K2's
+   operations are those its rows' live cells need; for K1 also its
+   longest ordered f32 chain at 4 cycles an add over the maximum SM
    clock);
 4. the main path at the server's default widths: ~200k DogStatsD lines
    parsed, keyed and ingested by Aggregator(device="cuda"), a flush
@@ -68,7 +69,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and timed on both timers. K3 reads the set rows through the batch's
    row index; it is timed as the program calls it, on the gathered rows,
    and beside the set-row gather alone (which the program no longer
-   makes);
+   makes, since K3 takes the index);
 7. the wide widths: 100k lines of phase 4's mix through Aggregator at
    compression 2,400 and hll_precision 16 (the default capacities; 0.72
    GB of state) on the card, flushed, held to phase 4's oracles, and
@@ -76,10 +77,6 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    equal, percentiles within 1e-2, set estimates within 1e-5, the rest
    exact); every launch of that run is of the in-place K1 and the
    wide-row K2.
-
---baseline runs what a tree from before the wide-row paths and K3's row
-index can run (phases 1-6 without their wide and row-index parts), so
-that such a tree can be timed under this script beside a newer one.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -444,7 +441,10 @@ def _digest_case(device, args, clock_hz) -> dict:
     (`device_ms`, `_device_ms`), beside the plain version, a stable
     `torch.sort` of the same rows' keys (`sort_ms`: a yardstick for the
     sort alone, not K2's function) and the bound. The bound counts the
-    work of the reference's full-row sort, whatever implements it."""
+    operations these rows' live cells need: per row of n live cells, a
+    comparison sort (n * ceil(log2 n) compare-exchanges of 4 operations),
+    the prefix sum (2n) and each quantile's binary search (ceil(log2 n)
+    + 6); an empty row needs only its NaNs (Q)."""
     import torch
     from veneur_tpu_torch.ops import cuda_digest
 
@@ -470,14 +470,12 @@ def _digest_case(device, args, clock_hz) -> dict:
                         device, 5)
     sort_ms = _time_ms(lambda: torch.sort(keys, dim=-1, stable=True),
                        device, 5)
-    c_pad = 64
-    while c_pad < c:
-        c_pad <<= 1
-    stages = int(math.log2(c_pad)) * (int(math.log2(c_pad)) + 1) // 2
     q = args[4].shape[0]
+    n = live.double()
+    lg = torch.ceil(torch.log2(n.clamp(min=1)))
     nbytes = rows * c * 8 + rows * 8 + q * 4 + rows * q * 4
-    ops = rows * (c_pad // 2 * stages * 4 + 2 * c_pad
-                  + q * (int(math.log2(c_pad)) + 6))
+    ops = float(torch.where(n > 0, 4 * n * lg + 2 * n + q * (lg + 6),
+                            q).sum())
     bound_ms, bound_by = _bound(nbytes, ops)
     return dict(rows=rows, cells=c, q=q, max_abs_err=err, ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, sort_ms=sort_ms,
@@ -1111,12 +1109,11 @@ def _compare_range(got, want, label):
     return err
 
 
-def history_path(device, clock_hz, with_idx: bool) -> dict:
+def history_path(device, clock_hz) -> dict:
     """The history tier through the port's entry points: compute_flush
     with the ring write fused in, decimation at each power-of-two
     boundary, then one range batch through range_in_packed. K3 reads the
-    ring's set rows through the batch's row index (with_idx), or is
-    handed them gathered (a tree whose K3 takes no index)."""
+    ring's set rows through the batch's row index."""
     import torch
     from veneur_tpu_torch import convert
     from veneur_tpu_torch.aggregation.host import BatchSpec
@@ -1227,10 +1224,8 @@ def history_path(device, clock_hz, with_idx: bool) -> dict:
     set_rows = _take(hist.hll, setidx)
 
     def k3_as_the_program_calls_it():
-        if with_idx:
-            return cuda_history.merge_windows_packed(
-                hist.hll, sel, precision=p, idx=setidx)
-        return cuda_history.merge_windows_packed(set_rows, sel, precision=p)
+        return cuda_history.merge_windows_packed(hist.hll, sel, precision=p,
+                                                 idx=setidx)
     merged = k3_as_the_program_calls_it()
     _check(np.array_equal(merged.cpu().numpy(), _merge_np(
         set_rows.cpu().numpy(), inputs["sel"], p)),
@@ -1254,9 +1249,8 @@ def history_path(device, clock_hz, with_idx: bool) -> dict:
            "range batch answered nothing")
 
     # the range program's parts, each timed alone on the same inputs: K3
-    # as the program calls it, K3 on the gathered set rows (the range
-    # batch's shape as every tree runs it), and the set-row gather that
-    # a K3 without a row index needs
+    # as the program calls it, K3 on the gathered set rows, and the
+    # set-row gather that a K3 without a row index would need
     k3_ms = _time_ms(k3_as_the_program_calls_it, device, 20)
     k3_device_ms = _device_ms(k3_as_the_program_calls_it, 20, clock_hz)
 
@@ -1277,7 +1271,7 @@ def history_path(device, clock_hz, with_idx: bool) -> dict:
 
     def gathers():        # the row gathers the range program makes
         for name in hdev.HISTORY_FIELDS:
-            if name != "hll" or not with_idx:
+            if name != "hll":
                 _take(getattr(hist, name), idx[hdev.FIELD_KIND[name]])
     gather_ms = _time_ms(gathers, device, 5)
     c_hi, c_lo = _take(hist.counter_hi, idx[0]), _take(hist.counter_lo,
@@ -1425,11 +1419,6 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
-    # --baseline drives a tree from before the wide-row kernels and K3's
-    # row index, so that such a tree can be timed under this script: it
-    # leaves out phase 3's wide cases and K3's index form and phase 7,
-    # and hands K3 gathered set rows in phase 6
-    baseline = "--baseline" in sys.argv[1:]
     device = torch.device("cuda")
     card = device_line()
     print("card:", card)
@@ -1478,7 +1467,7 @@ def main() -> int:
     del main_k2, big_k2
     torch.cuda.empty_cache()
 
-    hist, range_k2 = history_path(device, clock_hz, with_idx=not baseline)
+    hist, range_k2 = history_path(device, clock_hz)
     print("history path (default ring):", json.dumps(hist))
     print("kernel digest_quantiles (range batch):",
           json.dumps(_digest_sequence(device, range_k2, clock_hz)))
@@ -1494,31 +1483,29 @@ def main() -> int:
     del range_k2
     torch.cuda.empty_cache()
 
-    if not baseline:
-        # phase 3, continued: what a baseline tree cannot run, after the
-        # phases it can, so that those run alike on both trees
-        merge_idx = kernel_merge_windows_idx(device, clock_hz)
-        print("kernel merge_windows, row index:", json.dumps(merge_idx))
-        ingest_wide = kernel_ingest(device, clock_hz, _wide_spec())
-        print("kernel fused_ingest, rows in place (compression 2400, "
-              "hll_precision 16):", json.dumps(ingest_wide))
-        digests_wide = [kernel_digest_wide(device, clock_hz, c)
-                        for c in (3928, 2056)]
-        for d in digests_wide:
-            print("kernel digest_quantiles, wide rows:", json.dumps(d))
-        torch.cuda.empty_cache()
+    # phase 3, continued: K3's row-index form and the wide-row paths
+    merge_idx = kernel_merge_windows_idx(device, clock_hz)
+    print("kernel merge_windows, row index:", json.dumps(merge_idx))
+    ingest_wide = kernel_ingest(device, clock_hz, _wide_spec())
+    print("kernel fused_ingest, rows in place (compression 2400, "
+          "hll_precision 16):", json.dumps(ingest_wide))
+    digests_wide = [kernel_digest_wide(device, clock_hz, c)
+                    for c in (3928, 2056)]
+    for d in digests_wide:
+        print("kernel digest_quantiles, wide rows:", json.dumps(d))
+    torch.cuda.empty_cache()
 
-        wide = wide_widths(device, make_lines(np.random.default_rng(9),
-                                              100_000))
-        print("wide widths (compression 2400, hll_precision 16):",
-              json.dumps(wide))
-        want = {"fused_ingest": 0, "fused_ingest_wide": wide["steps"],
-                "digest_quantiles": 0, "merge_windows": 0}
-        _check({k: v for k, v in wide["launches"].items()
-                if k != "digest_quantiles_wide"} == want
-               and wide["launches"]["digest_quantiles_wide"] >= 1,
-               f"wide widths: launches {wide['launches']}, want {want} "
-               "and digest_quantiles_wide >= 1")
+    wide = wide_widths(device, make_lines(np.random.default_rng(9),
+                                          100_000))
+    print("wide widths (compression 2400, hll_precision 16):",
+          json.dumps(wide))
+    want = {"fused_ingest": 0, "fused_ingest_wide": wide["steps"],
+            "digest_quantiles": 0, "merge_windows": 0}
+    _check({k: v for k, v in wide["launches"].items()
+            if k != "digest_quantiles_wide"} == want
+           and wide["launches"]["digest_quantiles_wide"] >= 1,
+           f"wide widths: launches {wide['launches']}, want {want} "
+           "and digest_quantiles_wide >= 1")
 
     src = "veneur_tpu_torch/csrc/"
     kernels = [
@@ -1544,28 +1531,25 @@ def main() -> int:
              max_abs_err=merge["max_abs_err"], ms=merge["ms"],
              plain_ms=merge["plain_ms"], bound_ms=merge["bound_ms"],
              bound_by=merge["bound_by"], library_ms=None),
+        dict(name="fused_ingest_wide", route="cuda",
+             source=src + "fused_ingest.cu",
+             replaces="veneur_tpu/ops/pallas_ingest.py:310",
+             launches=wide["launches"]["fused_ingest_wide"],
+             max_abs_err=max(ingest_wide["max_abs_err"],
+                             ingest_wide["hot"]["max_abs_err"]),
+             ms=ingest_wide["ms"], plain_ms=ingest_wide["plain_ms"],
+             bound_ms=ingest_wide["bound_ms"],
+             bound_by=ingest_wide["bound_by"], library_ms=None),
+        dict(name="digest_quantiles_wide", route="cuda",
+             source=src + "digest_quantiles.cu",
+             replaces="veneur_tpu/ops/pallas_digest.py:189",
+             launches=wide["launches"]["digest_quantiles_wide"],
+             max_abs_err=max(d["max_abs_err"] for d in digests_wide),
+             ms=digests_wide[0]["ms"],
+             plain_ms=digests_wide[0]["plain_ms"],
+             bound_ms=digests_wide[0]["bound_ms"],
+             bound_by=digests_wide[0]["bound_by"], library_ms=None),
     ]
-    if not baseline:
-        kernels += [
-            dict(name="fused_ingest_wide", route="cuda",
-                 source=src + "fused_ingest.cu",
-                 replaces="veneur_tpu/ops/pallas_ingest.py:310",
-                 launches=wide["launches"]["fused_ingest_wide"],
-                 max_abs_err=max(ingest_wide["max_abs_err"],
-                                 ingest_wide["hot"]["max_abs_err"]),
-                 ms=ingest_wide["ms"], plain_ms=ingest_wide["plain_ms"],
-                 bound_ms=ingest_wide["bound_ms"],
-                 bound_by=ingest_wide["bound_by"], library_ms=None),
-            dict(name="digest_quantiles_wide", route="cuda",
-                 source=src + "digest_quantiles.cu",
-                 replaces="veneur_tpu/ops/pallas_digest.py:189",
-                 launches=wide["launches"]["digest_quantiles_wide"],
-                 max_abs_err=max(d["max_abs_err"] for d in digests_wide),
-                 ms=digests_wide[0]["ms"],
-                 plain_ms=digests_wide[0]["plain_ms"],
-                 bound_ms=digests_wide[0]["bound_ms"],
-                 bound_by=digests_wide[0]["bound_by"], library_ms=None),
-        ]
     print(f"build {build_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -433,14 +433,15 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("p,n,w,s,form", [
     (10, 5, 7, 3, "rows"), (10, 4, 200, 4, "rows"), (14, 9, 37, 6, "rows"),
     (14, 3, 361, 5, "rows"), (14, 6, 361, 40, "idx"), (4, 5, 9, 3, "idx"),
-    (5, 4, 700, 6, "idx"), (10, 5, 33, 4, "unaligned"),
-    (4, 3, 12_300, 3, "idx")])
+    (5, 4, 700, 6, "idx"), (10, 4, 700, 6, "idx"), (14, 3, 600, 5, "rows"),
+    (10, 5, 33, 4, "unaligned"), (4, 3, 12_300, 3, "idx")])
 def test_merge_windows_kernel_byte_exact(cuda, p, n, w, s, form):
     """K3 against its plain version: rows given whole or through a row
     index (repeated, and clamped from below 0 and past the ring); the
     16-byte path (p >= 6) and the scalar one (p = 4, 5, and a base off
-    16-byte alignment); more than 32 steps (two step groups); a ring of
-    more than 512 columns (several column chunks) and of 12,300."""
+    16-byte alignment); more than 32 steps (two step groups); rings of
+    more than 512 columns (several column chunks) on both paths, and of
+    12,300."""
     rng = np.random.default_rng(1000 * p + w)
     regs = rng.integers(0, 64, (n, w, 1 << p)).astype(np.uint8)
     regs[0] = 0                                   # all-zero row
@@ -468,7 +469,10 @@ def test_merge_windows_kernel_byte_exact(cuda, p, n, w, s, form):
     torch.cuda.synchronize()
     assert cuda_history.launches == before + 1
     assert torch.equal(got.cpu(), want)
-    assert not want[:, 1].any() and want[want.shape[0] - 1, -1].any()
+    # every output row but those of the all-zero ring row 0 is non-zero
+    # on the every-column step
+    live = (torch.arange(n) if idx is None else idx.clamp(0, n - 1)) != 0
+    assert not want[:, 1].any() and want[live, -1].any(-1).all()
 
 
 def _range_answers(wr, need, sel, rank):
