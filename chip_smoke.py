@@ -77,6 +77,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    equal, percentiles within 1e-2, set estimates within 1e-5, the rest
    exact); every launch of that run is of the in-place K1 and the
    wide-row K2.
+8. (run right after phase 4) the native path, the default config's
+   ingest: phase 4's lines in ~1,400-byte datagrams through
+   NativeAggregator on the card (the port's C++ engine, built with g++
+   beside the kernels in phase 2) by three routes: `feed`; a loopback
+   UDP socket read by the C++ reader and drained by pump(20), sent in
+   paced bursts so that no datagram is lost; and four rings through
+   rings_inject, each name's lines on one ring, in waves of 10k lines
+   (a single-ring step's). Each run is flushed and held to phase 4's
+   oracles; K1 launches on every step (on each of the four rows of a
+   ring step), K2 in the flush, and `processed` is every line sent;
+   `feed` flushes the InterMetrics of phase 4's Python path, and `udp`
+   those of `feed` (percentiles within rtol/atol 2e-5, the rest equal).
+   A fourth run deals every key over the four rings and reports its
+   p50/p99 errors without holding them. Prints samples/s, step_ms,
+   flush_ms and h2d_bytes beside phase 4's, and how the ingest time
+   splits between the engine's parse (`feed` only), its packed emit, the
+   host's step launches and the rest.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -187,10 +204,30 @@ def device_line() -> str:
 
 
 def build_kernels() -> float:
+    """The CUDA kernels (nvcc, one process a source) and, beside them on
+    another thread, the native ingest engine (g++)."""
+    import threading
+    from veneur_tpu_torch import native
     from veneur_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    engine = {}
+
+    def build_engine():
+        try:
+            engine["path"] = native.build()
+        except BaseException as e:      # re-raised below, on this thread
+            engine["error"] = e
+        engine["s"] = time.perf_counter() - t0
+    th = threading.Thread(target=build_engine)
+    th.start()
     _path, log = _build.build()
     _build.load()
+    th.join()
+    if "error" in engine:
+        raise engine["error"]
+    native.load()
+    print(f"build: native engine {engine['path'].name} in "
+          f"{engine['s']:.1f} s")
     dt = time.perf_counter() - t0
     for line in log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry",
@@ -794,8 +831,10 @@ def _oracle(lines):
     return counters, gauges, timers, sets
 
 
-def _check_flush(res, table, counters, gauges, timers, sets, label):
-    """Hold one flush to the exact oracles; returns what was checked."""
+def _check_flush(res, table, counters, gauges, timers, sets, label,
+                 gate_quantiles=True):
+    """Hold one flush to the exact oracles; returns what was checked.
+    Without gate_quantiles the p50/p99 errors are measured, not held."""
     def rows(kind):
         return [(m.name, m.joined_tags or "") for _s, m in
                 table.get_meta(kind)]
@@ -830,7 +869,8 @@ def _check_flush(res, table, counters, gauges, timers, sets, label):
             rel = np.abs(hq[idx, qi] - exact) / np.maximum(np.abs(exact),
                                                            1e-9)
             worst[q] = max(worst[q], float(rel.max()))
-            _check((rel < tol).all(), f"{label}: p{int(q * 100)} off by "
+            _check(not gate_quantiles or (rel < tol).all(),
+                   f"{label}: p{int(q * 100)} off by "
                    f"{rel.max():.4f} on a {n}-sample key")
         checked += len(idx)
     _check(checked >= 8, f"{label}: quantile oracle checked {checked} keys")
@@ -889,9 +929,278 @@ def main_path(device, lines) -> dict:
     return dict(lines=len(lines), steps=agg.steps_total,
                 launches=launches, ingest_s=t1 - t0,
                 samples_per_s=len(lines) / (t1 - t0),
-                flush_ms=(t2 - t1) * 1e3, label_ms=(t3 - t2) * 1e3,
-                intermetrics=len(ims), h2d_bytes=agg.h2d_bytes,
-                **checked), captured
+                **_step_times(agg), flush_ms=(t2 - t1) * 1e3,
+                label_ms=(t3 - t2) * 1e3, intermetrics=len(ims),
+                h2d_bytes=agg.h2d_bytes, **checked), captured, ims
+
+
+def _step_times(agg) -> dict:
+    """The aggregator's step accounting: `steps_host_s`, the host's time
+    enqueueing every ingest step (the torch prologue's launches, K1's,
+    the fold's, compaction's); `step_ms`, that per step; `synced_ms`, the
+    host's waits for the card at the sampled steps (every 64th, with their
+    dispatch) and at the swap, over `steps_synced` samples."""
+    return dict(steps_host_s=agg.dispatch_ns / 1e9,
+                step_ms=agg.dispatch_ns / 1e6 / max(agg.steps_total, 1),
+                synced_ms=agg.step_ns / 1e6, steps_synced=agg.steps_synced)
+
+
+# -- phase 8: the native path at the default widths ---------------------------
+
+def _datagrams(lines, size: int = 1400):
+    """Lines joined by newlines into datagrams of at most ~`size` bytes."""
+    out, cur, n = [], [], 0
+    for line in lines:
+        if cur and n + len(line) + 1 > size:
+            out.append(b"\n".join(cur))
+            cur, n = [], 0
+        cur.append(line)
+        n += len(line) + 1
+    if cur:
+        out.append(b"\n".join(cur))
+    return out
+
+
+def _lines_seen(agg) -> int:
+    """Lines the engine has parsed: processed, refused or dropped."""
+    st = agg.eng.stats()
+    return st["processed"] + st["parse_errors"] + st["dropped"]
+
+
+def _wait_lines(agg, n: int, label: str, timeout_s: float = 120.0,
+                failed=()) -> None:
+    """pump(20), the server's packet loop, until the engine has parsed
+    `n` lines (or a sender thread has put its error in `failed`)."""
+    t0 = time.perf_counter()
+    while _lines_seen(agg) < n:
+        _check(not failed, f"{label}: sender failed: {list(failed)}")
+        _check(time.perf_counter() - t0 < timeout_s,
+               f"{label}: {_lines_seen(agg)} of {n} lines parsed after "
+               f"{timeout_s:.0f} s")
+        agg.pump(20)
+
+
+def _udp_route(agg, datagrams, n_lines: int) -> None:
+    """The default config's route: one C++ recvmmsg reader on a loopback
+    socket, fed by a sender thread that sends 64 datagrams at a time and
+    waits until the reader has them all (so that none is lost in the
+    socket), while this thread runs pump(20)."""
+    import socket
+    import threading
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    rx.bind(("127.0.0.1", 0))
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    addr = rx.getsockname()
+    agg.readers_start([rx.fileno()])
+    failed = []
+
+    def send():
+        try:
+            for i in range(0, len(datagrams), 64):
+                for d in datagrams[i:i + 64]:
+                    tx.sendto(d, addr)
+                sent = min(i + 64, len(datagrams))
+                t0 = time.perf_counter()
+                while agg.reader_counters()["datagrams"] < sent:
+                    if time.perf_counter() - t0 > 30:
+                        raise TimeoutError(f"reader has not taken datagram "
+                                           f"{sent} after 30 s")
+                    time.sleep(0.0002)
+        except BaseException as e:      # reported on the main thread
+            failed.append(e)
+    th = threading.Thread(target=send)
+    th.start()
+    try:
+        _wait_lines(agg, n_lines, "native udp", failed=failed)
+    finally:
+        th.join()
+        rx.close()
+        tx.close()
+    _check(not failed, f"native udp: sender failed: {failed}")
+
+
+def _ring_waves(lines, rings: int, spread: bool, wave: int = 10_000):
+    """The rings route's traffic, made before it is timed: waves of
+    `wave` lines (the lines a single-ring step carries at the default
+    widths, where the gauge lane fills), each a list of (ring, datagram)
+    in injection order, and the lines in it. A line's ring is picked by
+    its name, as when each key comes from one sender, whose datagrams
+    SO_REUSEPORT keeps on one socket; with `spread`, the lines are dealt
+    over the rings in turn, as when many senders share the keys, and
+    only a gauge's lines stay on its name's ring (so that its last write
+    is the oracle's; across rings it would follow the threads' timing).
+    Waves keep a step's lines, and so the lines between two compactions,
+    those of phase 4: unpaced, a ring step carries up to four single-ring
+    steps' lines (PERF.md §6, PR 7)."""
+    import zlib
+    out = []
+    for w in range(0, len(lines), wave):
+        per = [[] for _ in range(rings)]
+        for i, line in enumerate(lines[w:w + wave]):
+            head, kind = line.split(b"|", 2)[:2]
+            r = i if spread and kind != b"g" else zlib.crc32(
+                head.split(b":", 1)[0])
+            per[r % rings].append(line)
+        grams = [_datagrams(p) for p in per]
+        out.append(([(r, grams[r][i]) for i in range(max(map(len, grams)))
+                     for r in range(rings) if i < len(grams[r])],
+                    sum(map(len, per))))
+    return out
+
+
+def _rings_route(agg, waves, rings: int) -> None:
+    """rings_start(rings), then per wave: every datagram through
+    rings_inject, a wait until the ring workers have parsed the whole
+    wave, and one pump(0), which runs its step."""
+    from veneur_tpu_torch.native import INJECT_OK
+    agg.rings_start(rings)
+    sent = 0
+    for grams, n_lines in waves:
+        for r, d in grams:
+            v = agg.eng.rings_inject(r, d)
+            _check(v == INJECT_OK, f"native rings: inject verdict {v}")
+        sent += n_lines
+        t0 = time.perf_counter()
+        while _lines_seen(agg) < sent:
+            _check(time.perf_counter() - t0 < 60,
+                   f"native rings: {_lines_seen(agg)} of {sent} lines "
+                   "parsed after 60 s")
+            time.sleep(0.0002)
+        agg.pump(0)
+
+
+def _same_intermetrics(got, want, label) -> float:
+    """Two flushes of the same lines: the same names, tags and types in
+    the same order (sorted by key when `label` names a run whose slot
+    order follows thread timing), percentiles and medians within rtol/atol
+    2e-5, every other value equal. Returns the worst percentile gap."""
+    def key(m):
+        return (m.name, tuple(m.tags))
+    if "rings" in label:
+        got, want = sorted(got, key=key), sorted(want, key=key)
+    _check([(m.name, m.tags, m.type) for m in got]
+           == [(m.name, m.tags, m.type) for m in want],
+           f"{label}: InterMetric names, tags or types differ")
+    worst = 0.0
+    for g, w in zip(got, want):
+        tail = g.name.rsplit(".", 1)[-1]
+        if tail.endswith("percentile") or tail == "median":
+            d = abs(g.value - w.value)
+            _check(d <= 2e-5 + 2e-5 * abs(w.value),
+                   f"{label}: {g.name} {g.value} vs {w.value}")
+            worst = max(worst, d)
+        else:
+            _check(g.value == w.value,
+                   f"{label}: {g.name} {g.value} vs {w.value}")
+    return worst
+
+
+def native_path(device, lines, python_ims) -> dict:
+    """Phase 4's lines through NativeAggregator on the card, the default
+    config's ingest path, by three routes: `feed` (datagrams handed to
+    the engine), `udp` (a loopback socket, the C++ reader and pump(20))
+    and `rings` (four rings, rings_inject, each name on one ring). Each
+    run is flushed, held to phase 4's oracles, and must launch K1 on
+    every step (on every ring of every step with rings) and K2 in its
+    flush; `feed` must flush phase 4's Python-path InterMetrics, and
+    `udp` what `feed` flushes. A fourth run, `rings_spread`, deals every
+    key over the four rings: it is held to the same gates but for the
+    quantile tolerances, whose errors it reports (PERF.md §6, PR 7)."""
+    import torch
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.server.flusher import generate_intermetrics
+    from veneur_tpu_torch.server.native_aggregator import NativeAggregator
+
+    datagrams = _datagrams(lines)
+    waves = {"rings": _ring_waves(lines, 4, spread=False),
+             "rings_spread": _ring_waves(lines, 4, spread=True)}
+    oracle = _oracle(lines)
+    out, ims_by = {}, {}
+    for route in ("feed", "udp", "rings", "rings_spread"):
+        agg = NativeAggregator(_default_spec(), BatchSpec(), device=device)
+        acc = {"parse": 0, "emit": 0}
+        if route == "feed":
+            # the engine's own calls on this thread, timed in place
+            for name, key in (("feed", "parse"), ("emit_packed", "emit")):
+                def timed(*a, _fn=getattr(agg.eng, name), _key=key):
+                    t = time.perf_counter_ns()
+                    r = _fn(*a)
+                    acc[_key] += time.perf_counter_ns() - t
+                    return r
+                setattr(agg.eng, name, timed)
+        cuda_ingest.launches = cuda_digest.launches = 0
+        cuda_history.launches = 0
+        t0 = time.perf_counter()
+        try:
+            sent = len(datagrams)
+            if route == "feed":
+                for d in datagrams:
+                    agg.feed(d)
+            elif route == "udp":
+                _udp_route(agg, datagrams, len(lines))
+            else:
+                _rings_route(agg, waves[route], 4)
+                sent = sum(len(g) for g, _n in waves[route])
+            state, table = agg.swap()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rings = agg.ring_stats()
+            readers = agg.reader_counters()
+            # the ring parsers' counts are the engine's only while the
+            # rings run
+            counts = (agg.processed, agg.dropped_capacity,
+                      agg.extra_parse_errors())
+        finally:
+            agg.readers_stop()
+        res, table = agg.compute_flush(state, table, PERCENTILES)
+        t2 = time.perf_counter()
+        ims_by[route] = generate_intermetrics(
+            res, table, percentiles=PERCENTILES, aggregates=AGGREGATES,
+            is_local=False, timestamp=int(time.time()))
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches,
+                    "merge_windows": cuda_history.launches}
+        label = f"native {route}"
+        per_step = 4 if route.startswith("rings") else 1
+        _check(launches["fused_ingest"] == per_step * agg.steps_total > 0,
+               f"{label}: {launches['fused_ingest']} K1 launches for "
+               f"{agg.steps_total} steps")
+        _check(launches["digest_quantiles"] >= 1,
+               f"{label}: K2 never launched by the flush")
+        _check(counts == (len(lines), 0, 0),
+               f"{label}: (processed, dropped, parse errors) {counts} for "
+               f"{len(lines)} lines")
+        if route == "udp":
+            _check(readers["datagrams"] == len(datagrams)
+                   and readers["ring_dropped"] == 0
+                   and readers["toolong"] == 0,
+                   f"{label}: reader counters {readers}")
+        emit_s = (acc["emit"] if route == "feed"
+                  else rings["emit_packed_ns"]) / 1e9
+        r = dict(lines=len(lines), datagrams=sent,
+                 steps=agg.steps_total, launches=launches,
+                 ingest_s=t1 - t0, samples_per_s=len(lines) / (t1 - t0),
+                 **_step_times(agg), flush_ms=(t2 - t1) * 1e3,
+                 h2d_bytes=agg.h2d_bytes, emit_packed_s=emit_s,
+                 parse_s=acc["parse"] / 1e9 if route == "feed" else None)
+        # what is left of the ingest wall: Python, waits, and (feed) the
+        # copies; with readers the parse runs on C++ threads beside it
+        r["other_s"] = r["ingest_s"] - r["steps_host_s"] - emit_s - (
+            r["parse_s"] or 0.0)
+        print(f"native path, {route} (default widths):", json.dumps(r),
+              flush=True)
+        r.update(_check_flush(res, table, *oracle, label=label,
+                              gate_quantiles=route != "rings_spread"))
+        out[route] = r
+        del agg, state, res
+        torch.cuda.empty_cache()
+    out["feed"]["worst_percentile_gap_vs_python"] = _same_intermetrics(
+        ims_by["feed"], python_ims, "native feed vs the Python path")
+    out["udp"]["worst_percentile_gap_vs_feed"] = _same_intermetrics(
+        ims_by["udp"], ims_by["feed"], "native udp vs feed")
+    return out
 
 
 # -- phase 5: the 1M-key table, staged in bulk ---------------------------------
@@ -1440,7 +1749,7 @@ def main() -> int:
     print("kernel merge_windows:", json.dumps(merge))
 
     lines = make_lines(np.random.default_rng(0), 200_000)
-    main, main_k2 = main_path(device, lines)
+    main, main_k2, main_ims = main_path(device, lines)
     print("main path (default widths):", json.dumps(main))
     _check(main["steps"] >= 16, f"only {main['steps']} ingest steps")
     _check(main["launches"]["fused_ingest"] == main["steps"],
@@ -1450,6 +1759,22 @@ def main() -> int:
     print(f"main path on {card}: {main['samples_per_s']:.0f} samples/s "
           f"(parse + key + stage + ingest, host included), flush "
           f"{main['flush_ms']:.1f} ms")
+
+    # phase 8, right after phase 4: the same lines on the native path
+    nat = native_path(device, lines, main_ims)
+    del main_ims
+    for route, r in nat.items():
+        print(f"native path, {route}, oracles:", json.dumps(
+            {k: v for k, v in r.items() if k.startswith("worst")
+             or k in ("counters", "gauges", "timers", "sets",
+                      "quantile_keys_checked")}))
+    keys = ("samples_per_s", "step_ms", "flush_ms", "h2d_bytes", "steps")
+    print("native path beside the Python path:", json.dumps(
+        {"python": {k: main[k] for k in keys},
+         **{route: {k: r[k] for k in keys} for route, r in nat.items()}}))
+    print(f"native path on {card}: " + ", ".join(
+        f"{route} {r['samples_per_s']:.0f} samples/s" for route, r in
+        nat.items()) + f" (Python path {main['samples_per_s']:.0f})")
 
     big, big_k2 = million_keys(device)
     print("1M-key phase:", json.dumps(big))

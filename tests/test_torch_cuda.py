@@ -24,10 +24,14 @@ machine has no JAX.)
   and without a row index, on the 16-byte and the scalar paths and on a
   ring of more than 12,288 columns;
 - the whole slice on the card against the same slice on the CPU;
+- the native ingest path (NativeAggregator) on the card against the same
+  run on the CPU, single-ring through `feed` and with four rings;
 - the history tier on the card: the fused ring equals a replay of the
   archived frames, and a range batch matches the same batch over a CPU
   copy of the ring.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -44,6 +48,7 @@ from veneur_tpu_torch.ops import (_build, cuda_digest, cuda_history,
 from veneur_tpu_torch.samplers.parser import ParseError, parse_metric
 from veneur_tpu_torch.server.aggregator import Aggregator
 from veneur_tpu_torch.server.flusher import generate_intermetrics
+from veneur_tpu_torch.server.native_aggregator import NativeAggregator
 
 pytestmark = pytest.mark.gpu
 
@@ -422,6 +427,115 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
         if g.name.endswith("percentile"):
             # the torch prologue's sums round differently on the card, so
             # a sample may land one digest cell over
+            assert abs(g.value - c.value) <= 1e-2 * abs(c.value) + 1e-6, \
+                g.name
+        elif g.name.startswith("s."):
+            assert abs(g.value - c.value) <= 1e-5 * c.value, g.name
+        else:
+            assert g.value == c.value, g.name
+
+
+def _native_waves(rng, rings=4, waves=6, per_wave=400):
+    """Waves of counter, gauge, timer and set lines; a line's ring is fixed
+    by its name (so a key's order is too), and per wave and ring the
+    lines form datagrams of at most ~1,400 bytes."""
+    out = []
+    for _ in range(waves):
+        by_ring = [[] for _ in range(rings)]
+        for _ in range(per_wave):
+            k = rng.integers(0, 4)
+            if k == 0:
+                line = b"c.%d:%d|c|@0.5" % (rng.integers(0, 500),
+                                           rng.integers(1, 9))
+            elif k == 1:
+                line = b"g.%d:%.3f|g" % (rng.integers(0, 100), rng.normal())
+            elif k == 2:
+                line = b"t.%d:%.3f|ms|#a:b" % (min(rng.zipf(1.4), 200),
+                                               rng.lognormal(3.0, 1.0))
+            else:
+                line = b"s.%d:u%d|s" % (rng.integers(0, 40),
+                                        rng.integers(0, 5000))
+            by_ring[sum(line.split(b":", 1)[0]) % rings].append(line)
+        wave = []
+        for r, lines in enumerate(by_ring):
+            for i in range(0, len(lines), 40):
+                wave.append((r, b"\n".join(lines[i:i + 40])))
+        out.append(wave)
+    return out
+
+
+def _native_run(device, waves, rings):
+    """The waves through NativeAggregator on `device`: fed in order, or
+    injected into `rings` rings, each wave parsed in full before one pump
+    (one step a wave, whatever the threads' timing). Returns the swapped
+    state as numpy, the InterMetrics and the steps."""
+    agg = NativeAggregator(SPEC, BatchSpec(counter=1024, gauge=256,
+                                           status=64, set=1024, histo=1024),
+                           device=device, compact_every=2)
+    if rings:
+        agg.rings_start(rings)
+    try:
+        sent = 0
+        for wave in waves:
+            for r, data in wave:
+                if rings:
+                    assert agg.eng.rings_inject(r, data) == 1
+                else:
+                    agg.feed(data)
+                sent += data.count(b"\n") + 1
+            if rings:
+                while (agg.processed + agg.extra_parse_errors()
+                       + agg.dropped_capacity) < sent:
+                    time.sleep(0.002)
+                agg.pump(0)
+        state, table = agg.swap()
+        steps = agg.steps_total
+        res, table = agg.compute_flush(state, table, [0.5, 0.99])
+    finally:
+        agg.readers_stop()
+    return (_rows_by_key(convert.state_to_numpy(state), table),
+            generate_intermetrics(res, table, percentiles=[0.5, 0.99],
+                                  aggregates=["count"], is_local=False,
+                                  timestamp=1), steps)
+
+
+def _rows_by_key(state: dict, table) -> dict:
+    """Each leaf's live rows in (name, tags) order: with rings, which slot
+    a key gets depends on which ring keys it first."""
+    kinds = {"counter": "counter", "gauge": "gauge", "status": "status",
+             "hll": "set", "h_": "histogram"}
+    out = {}
+    for leaf, rows in state.items():
+        kind = next(k for p, k in kinds.items() if leaf.startswith(p))
+        metas = sorted(table.get_meta(kind),
+                       key=lambda sm: (sm[1].name, sm[1].joined_tags or ""))
+        out[leaf] = rows[[slot for slot, _m in metas]]
+    return out
+
+
+@pytest.mark.parametrize("rings", [0, 4], ids=["feed", "rings"])
+def test_native_path_on_the_card_matches_the_cpu(cuda, rings):
+    """The same datagrams through NativeAggregator on the card and on the
+    CPU: every key's state rows byte-equal but the digest cells, which
+    the torch prologue's sums may place one cell over on the card (as in
+    the slice test); the same flush. K1 launches once a step, or once a
+    ring a step with rings."""
+    waves = _native_waves(np.random.default_rng(4))
+    cpu = _native_run("cpu", waves, rings)
+    cuda_ingest.launches = cuda_digest.launches = 0
+    gpu = _native_run(cuda, waves, rings)
+    assert gpu[2] == cpu[2] >= 3
+    assert cuda_ingest.launches == gpu[2] * max(rings, 1)
+    assert cuda_digest.launches >= 1
+    for name, want in cpu[0].items():
+        if name not in ("h_w", "h_wm"):
+            assert np.array_equal(gpu[0][name], want, equal_nan=True), name
+    key = (lambda m: (m.name, tuple(m.tags))) if rings else None
+    gims, cims = (sorted(x[1], key=key) if key else x[1] for x in (gpu, cpu))
+    assert [(m.name, m.type) for m in gims] == \
+        [(m.name, m.type) for m in cims]
+    for g, c in zip(gims, cims):
+        if g.name.endswith("percentile"):
             assert abs(g.value - c.value) <= 1e-2 * abs(c.value) + 1e-6, \
                 g.name
         elif g.name.startswith("s."):

@@ -203,7 +203,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         " or m == 'veneur_tpu' or m.startswith('veneur_tpu.')]\n"
         "assert not bad, bad\n"
         "n = sum(m.startswith('veneur_tpu_torch.') for m in sys.modules)\n"
-        "assert n >= 15, n\n"
+        "assert n >= 30, n\n"
+        "import veneur_tpu_torch.native as nat\n"
+        "import veneur_tpu_torch.server.native_aggregator\n"
+        "assert nat.load.cache_info().currsize == 0   # built at first use\n"
         "print('ok', n)\n")
     import pathlib
     root = pathlib.Path(__file__).resolve().parent.parent

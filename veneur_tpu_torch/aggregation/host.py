@@ -10,7 +10,9 @@ same way); one shard is the single-device case.
 The Batcher stages parsed samples into fixed-size numpy lanes and emits a
 padded Batch whenever a lane fills (padding rows carry slot == capacity).
 It stages no imported-digest scalar lanes (the global tier's import path
-is not ported), so its batches carry histo_stat_* = None.
+is not ported), so its batches carry histo_stat_* = None; the native
+engine's packed buffer carries them at `BatchSpec.histo_stat`, as
+sentinels.
 """
 
 from __future__ import annotations
@@ -140,6 +142,7 @@ class BatchSpec:
     status: int = 256
     set: int = 4096
     histo: int = 8192
+    histo_stat: int = 256
 
 
 class Batcher:

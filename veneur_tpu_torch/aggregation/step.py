@@ -162,11 +162,32 @@ def ingest_core(state: DeviceState, batch: Batch, *,
                 spec: TableSpec) -> DeviceState:
     """Apply one padded batch to the table (in place) and fold the
     accumulators into the two-float pairs."""
-    if batch.histo_stat_slot is not None:
-        raise NotImplementedError(
-            "imported digest stat lanes: the import path is not ported")
     cuda_ingest.fused_ingest(state, build_streams(state, batch, spec), spec)
+    if batch.histo_stat_slot is not None:
+        _histo_stats(state, batch, spec)
     return _fold_core(state)
+
+
+def _histo_stats(state: DeviceState, batch: Batch, spec: TableSpec) -> None:
+    """The imported digests' exact min/max/reciprocal-sum lanes, applied
+    after K1 as the JAX package applies them outside its kernel (XLA
+    scatters there). Rows with a slot outside [0, histo_capacity) drop,
+    negative ones too (the fused path's rule), without a host sync: they
+    are pointed at row 0 with the operation's identity (+inf for min,
+    -inf for max, -0.0 for the add, which leaves every value's bits as
+    they were). Min and max do not depend on row order. The add does: on
+    CPU tensors index_add_ adds rows in batch order, as the JAX package's
+    CPU scatter does; on the card it adds with atomics in no set order,
+    so duplicate slots in one batch may round differently there."""
+    s = batch.histo_stat_slot
+    ok = (s >= 0) & (s < spec.histo_capacity)
+    idx = torch.where(ok, s, 0).long()
+    state.h_min.scatter_reduce_(
+        0, idx, torch.where(ok, batch.histo_stat_min, torch.inf), "amin")
+    state.h_max.scatter_reduce_(
+        0, idx, torch.where(ok, batch.histo_stat_max, -torch.inf), "amax")
+    state.h_recip_acc.index_add_(
+        0, idx, torch.where(ok, batch.histo_stat_recip, -0.0))
 
 
 def _fold_core(state: DeviceState) -> DeviceState:
@@ -281,6 +302,23 @@ def packed_step_core(state: DeviceState, flat: torch.Tensor, *,
     state = ingest_core(state, unpack_batch(flat[1:], sizes), spec=spec)
     if do_compact:
         state = compact_core(state, spec=spec)
+    return state
+
+
+def packed_rings_core(state: DeviceState, arena: torch.Tensor, *,
+                      spec: TableSpec, sizes: tuple,
+                      do_compact: bool) -> DeviceState:
+    """The multi-ring step: `arena` is i32[R, words], one packed batch per
+    reader ring, shipped in one copy. Row 0 is a whole packed step (its
+    ingest, then the compaction if asked); rows 1..R-1 are ingested after
+    it with no compaction. That order is the JAX package's, and the
+    digest bytes depend on it. Only row 0 carries the control word. An
+    idle ring's row holds sentinels only, and its scatters all drop."""
+    state = packed_step_core(state, arena[0], spec=spec, sizes=sizes,
+                             do_compact=do_compact)
+    for r in range(1, arena.shape[0]):
+        state = ingest_core(state, unpack_batch(arena[r, 1:], sizes),
+                            spec=spec)
     return state
 
 

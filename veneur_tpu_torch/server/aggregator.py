@@ -11,6 +11,7 @@ into per-key numpy values.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -25,8 +26,13 @@ from veneur_tpu_torch.aggregation.step import (
     live_slots, pack_batch, pack_bucket_chunks, pack_flush_inputs,
     packed_layout, packed_step_core, pad_bucket, unpack_flush)
 from veneur_tpu_torch.history.writer import SENTINEL
+from veneur_tpu_torch.observability.runtime import sync_and_time
 from veneur_tpu_torch.samplers.parser import UDPMetric
 from veneur_tpu_torch.utils.hashing import fnv1a_64, splitmix64
+
+# every _SYNC_EVERY-th ingest step waits for the card, so step_ns holds
+# synced step times while the other steps pay only their enqueue
+_SYNC_EVERY = 64
 
 
 def set_member_bytes(value) -> bytes:
@@ -38,15 +44,31 @@ def set_member_bytes(value) -> bytes:
 
 
 class _PackBuffer:
-    """One host staging buffer for the packed batch. On the card it is
-    pinned, and `copied` is the event recorded after the non-blocking
-    copy out of it: the buffer is not packed again before that event
-    completes, or the copy could read a half-rewritten batch."""
+    """One host staging buffer for packed batches (i32[words], or one row
+    per reader ring). On the card it is pinned, and `copied` is the event
+    recorded after the non-blocking copy out of it: the buffer is not
+    written again before that event completes (`ready`), or the copy
+    could read a half-rewritten batch."""
 
-    def __init__(self, words: int, pinned: bool):
-        self.host = torch.zeros(words, dtype=torch.int32, pin_memory=pinned)
+    def __init__(self, shape, pinned: bool):
+        self.host = torch.zeros(shape, dtype=torch.int32, pin_memory=pinned)
         self.array = self.host.numpy()
         self.copied = None
+
+    def ready(self) -> None:
+        """Wait until the last copy out of this buffer has read it."""
+        if self.copied is not None:
+            self.copied.synchronize()
+
+    def to(self, device: torch.device) -> torch.Tensor:
+        """The buffer on `device`: a non-blocking copy from pinned memory
+        on the card (recording `copied`), the buffer itself on the CPU."""
+        if device.type != "cuda":
+            return self.host.to(device)
+        flat = self.host.to(device, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        return flat
 
 
 class Aggregator:
@@ -63,7 +85,13 @@ class Aggregator:
         self.processed = 0
         self.dropped_capacity = 0
         self.h2d_bytes = 0       # packed ingest bytes shipped to the device
-        self.steps_total = 0
+        self.steps_total = 0     # monotonic; _steps restarts every swap
+        # dispatch_ns: host time enqueueing steps (not device time);
+        # step_ns: dispatch plus the wait for the card, on the sampled
+        # steps and at each swap that ingested; steps_synced: samples in it
+        self.dispatch_ns = 0
+        self.step_ns = 0
+        self.steps_synced = 0
         # two staging buffers per lane-size signature, used in turn: batch
         # N+1 packs into one while batch N's copy may still read the other
         self._pack_bufs: dict = {}
@@ -121,19 +149,22 @@ class Aggregator:
                                              _PackBuffer(words, pinned), 0]
         buf = bufs[bufs[2]]
         bufs[2] ^= 1
-        if buf.copied is not None:
-            buf.copied.synchronize()
+        buf.ready()
         do_compact = self._steps % self.compact_every == 0
         pack_batch(batch, do_compact, out=buf.array)
         self.h2d_bytes += buf.array.nbytes
-        if self.device.type == "cuda":
-            flat = buf.host.to(self.device, non_blocking=True)
-            buf.copied = torch.cuda.Event()
-            buf.copied.record()
-        else:
-            flat = buf.host.to(self.device)
-        packed_step_core(self.state, flat, spec=self.spec, sizes=sizes,
-                         do_compact=do_compact)
+        t0 = time.perf_counter_ns()
+        packed_step_core(self.state, buf.to(self.device), spec=self.spec,
+                         sizes=sizes, do_compact=do_compact)
+        self._count_step(t0)
+
+    def _count_step(self, t0: int) -> None:
+        """Account one ingest step enqueued since perf_counter_ns `t0`."""
+        dt = time.perf_counter_ns() - t0
+        self.dispatch_ns += dt
+        if self.steps_total % _SYNC_EVERY == 0:
+            self.step_ns += dt + sync_and_time(self.state)
+            self.steps_synced += 1
 
     def process_metric(self, m: UDPMetric) -> None:
         """Key the sample to its slot and stage it in its lane."""
@@ -172,6 +203,11 @@ class Aggregator:
     def swap(self):
         """Detach the live state and key table and start fresh ones."""
         self.batcher.emit()
+        if self._steps:
+            # interval boundary: step_ns is never 0 after an interval
+            # that ingested, even when no sampled step fell in it
+            self.step_ns += sync_and_time(self.state)
+            self.steps_synced += 1
         state, table = self.state, self.table
         self.state = empty_state(self.spec, self.device)
         self.table = KeyTable(self.spec)
