@@ -94,6 +94,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    flush_ms and h2d_bytes beside phase 4's, and how the ingest time
    splits between the engine's parse (`feed` only), its packed emit, the
    host's step launches and the rest.
+9. (run right after phase 8) the Server, as the default config runs it
+   at the default widths: `Server(Config(...))` with native ingest, the
+   C++ reader on one ring, a loopback UDP listener, the HTTP API and a
+   debug sink. Phase 8's datagrams, paced as phase 8 paces them, then
+   one manual flush: it must pass phase 4's oracles and flush phase 8's
+   `udp` InterMetrics, with every datagram received and none dropped,
+   K1 on every step and K2 in the flush. A second, smaller interval
+   flushes only its own metrics. GET /healthcheck, /healthz, /readyz,
+   /stats and /metrics answer 200, and /metrics' veneur.device.hbm_*
+   agree with torch.cuda.memory_allocated and mem_get_info. A third
+   interval, 20k-line waves sent until GET /debug/profile?seconds=1
+   (torch.profiler with CUDA activity) replies: the trace must hold K1's
+   symbol; its kernel events give the card's busy share of the window.
+   shutdown() must return with the threads joined. Then the CLI daemon
+   (`python -m veneur_tpu_torch.cli.server -f cfg.yaml`, 2 s interval,
+   the local-file plugin) in a process of its own: lines until the
+   ticker writes them to the TSV, then SIGTERM, exit code 0. Prints
+   samples/s, the flush's wall and phase ms, launches and datagram
+   counts; the kernels line carries phase 9's K1 and K2 launches (and
+   each phase's).
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -1070,14 +1090,14 @@ def _rings_route(agg, waves, rings: int) -> None:
         agg.pump(0)
 
 
-def _same_intermetrics(got, want, label) -> float:
+def _same_intermetrics(got, want, label, by_key: bool = False) -> float:
     """Two flushes of the same lines: the same names, tags and types in
-    the same order (sorted by key when `label` names a run whose slot
-    order follows thread timing), percentiles and medians within rtol/atol
+    the same order (sorted by key with `by_key`, for flushes that order
+    their rows differently), percentiles and medians within rtol/atol
     2e-5, every other value equal. Returns the worst percentile gap."""
     def key(m):
         return (m.name, tuple(m.tags))
-    if "rings" in label:
+    if by_key:
         got, want = sorted(got, key=key), sorted(want, key=key)
     _check([(m.name, m.tags, m.type) for m in got]
            == [(m.name, m.tags, m.type) for m in want],
@@ -1200,6 +1220,399 @@ def native_path(device, lines, python_ims) -> dict:
         ims_by["feed"], python_ims, "native feed vs the Python path")
     out["udp"]["worst_percentile_gap_vs_feed"] = _same_intermetrics(
         ims_by["udp"], ims_by["feed"], "native udp vs feed")
+    return out, ims_by["udp"]
+
+
+# -- phase 9: the Server on the card --------------------------------------------
+
+def _server_config(**kw):
+    """The default config's Server at the default widths (the `tpu_*`
+    defaults: the phase 4 cell's ~114 MB of state): native ingest with
+    the C++ readers on one ring, a UDP listener and the HTTP API on
+    ports the kernel picks. The interval is an hour, so that every flush
+    of the phase is one it asks for."""
+    from veneur_tpu_torch.config import Config
+    base = dict(interval="3600s", hostname="", metric_max_length=4096,
+                read_buffer_size_bytes=1 << 22, percentiles=PERCENTILES,
+                aggregates=AGGREGATES, native_ingest=True,
+                native_udp_readers=True, reader_rings=1,
+                statsd_listen_addresses=["udp://127.0.0.1:0"],
+                http_address="127.0.0.1:0", prometheus_metrics_enabled=True,
+                profile_capture_enabled=True)
+    base.update(kw)
+    return Config(**base)
+
+
+def _send_paced(srv, datagrams, label: str) -> float:
+    """Phase 8's pacing through the Server's listener: 64 datagrams at a
+    time, then a wait until the C++ reader has taken them all, so that
+    none is lost in the socket. Returns the seconds it took."""
+    import socket
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    base = srv.packets_received
+    t0 = time.perf_counter()
+    try:
+        for i in range(0, len(datagrams), 64):
+            for d in datagrams[i:i + 64]:
+                tx.sendto(d, srv.local_addr())
+            sent = min(i + 64, len(datagrams))
+            t1 = time.perf_counter()
+            while srv.packets_received - base < sent:
+                _check(time.perf_counter() - t1 < 30,
+                       f"{label}: the reader has not taken datagram {sent} "
+                       "after 30 s")
+                time.sleep(0.0002)
+    finally:
+        tx.close()
+    return time.perf_counter() - t0
+
+
+def _wait_seen(srv, base: int, n: int, label: str) -> None:
+    """Until the engine has parsed `n` wire lines since `base` (its own
+    count: the server's self-metrics, which re-enter through the Python
+    path, are not in it)."""
+    t0 = time.perf_counter()
+    while _lines_seen(srv.aggregator) - base < n:
+        _check(time.perf_counter() - t0 < 120,
+               f"{label}: {_lines_seen(srv.aggregator) - base} of {n} lines "
+               "parsed after 120 s")
+        time.sleep(0.0005)
+
+
+def _phase_sums(srv) -> dict:
+    """veneur.flush.phase_duration_ns sums by phase, in ns."""
+    t = srv.metrics.get("veneur.flush.phase_duration_ns")
+    return {lv[0]: st.sum for lv, st in t.snapshot(qs=())}
+
+
+def _flush_interval(srv, label: str) -> tuple:
+    """One manual flush: its wall ms, each flush phase's ms (the phase
+    timer's growth), and the flush's own compute_flush outputs, captured
+    by a wrapper around the aggregator's."""
+    agg = srv.aggregator
+    captured = []
+    orig = agg.compute_flush
+
+    def capture(state, table, percentiles, **kw):
+        res, table = orig(state, table, percentiles, **kw)
+        captured.append((res, table))
+        return res, table
+    agg.compute_flush = capture
+    before = _phase_sums(srv)
+    t0 = time.perf_counter()
+    try:
+        _check(srv.trigger_flush(timeout=300), f"{label}: flush failed")
+    finally:
+        del agg.compute_flush
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    after = _phase_sums(srv)
+    _check(len(captured) == 1, f"{label}: {len(captured)} compute_flush calls")
+    phases = {k: (v - before.get(k, 0.0)) / 1e6 for k, v in after.items()}
+    return wall_ms, phases, captured[0]
+
+
+class _AppTable:
+    """The key table of a server flush less the server's own keys
+    (veneur.* self-metrics and span-name sets that its self-telemetry
+    feeds back from earlier flushes), with its flush rows to match: what
+    _check_flush holds to the oracle of the lines sent."""
+
+    ROWS = {"counter": ("counter",), "gauge": ("gauge",),
+            "set": ("set_estimate",), "histogram": ("histo_quantiles",)}
+
+    def __init__(self, res, table):
+        self.metas, self.res = {}, {}
+        for kind, keys in self.ROWS.items():
+            metas = table.get_meta(kind)
+            keep = [i for i, (_s, m) in enumerate(metas)
+                    if not m.name.startswith(("veneur.", "ssf."))]
+            self.metas[kind] = [metas[i] for i in keep]
+            for key in keys:
+                self.res[key] = np.asarray(res[key])[keep]
+
+    def get_meta(self, kind):
+        return self.metas[kind]
+
+
+def _check_server_flush(res, table, lines, label) -> dict:
+    app = _AppTable(res, table)
+    return _check_flush(app.res, app, *_oracle(lines), label=label)
+
+
+def _app_ims(sink):
+    """The flushed InterMetrics that are not self-telemetry, by key."""
+    return sorted((m for m in sink.flushed
+                   if not m.name.startswith("veneur.")
+                   and m.name != "ssf.names_unique"),
+                  key=lambda m: (m.name, tuple(m.tags)))
+
+
+def _http(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.status, r.read()
+
+
+def _hbm_series(exposition: str, name: str) -> dict:
+    import re
+    pat = re.compile(r'^%s\{device="([^"]+)"\} (\S+)$' % name)
+    out = {}
+    for line in exposition.splitlines():
+        m = pat.match(line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def _trace_kernels(trace_dir: str, window_s: float) -> dict:
+    """Kernel events of a torch.profiler Chrome trace: their count, their
+    names, and the card's busy share of the capture window (the union of
+    kernel intervals over the window)."""
+    import os
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+                  for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for t0, t1, _n in kern:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return dict(kernel_events=len(kern),
+                names=sorted({n for _a, _b, n in kern}),
+                busy_us=busy, busy_share=busy / (window_s * 1e6))
+
+
+def _cli_daemon(lines) -> dict:
+    """The CLI as a user starts it, in a process of its own on the card:
+    `python -m veneur_tpu_torch.cli.server -f cfg.yaml` with a 2 s
+    interval and the local-file plugin. Lines are sent until the ticker
+    writes them to the TSV; SIGTERM must end it with exit code 0."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    cfg = os.path.join(work, "cfg.yaml")
+    tsv = os.path.join(work, "out.tsv")
+    with open(cfg, "w") as f:
+        f.write('interval: "2s"\n'
+                f'statsd_listen_addresses: ["udp://127.0.0.1:{port}"]\n'
+                'percentiles: [0.5, 0.99]\naggregates: ["count"]\n'
+                f'flush_file: "{tsv}"\n')
+    env = dict(os.environ, PYTHONPATH=root)
+    log_path = os.path.join(work, "daemon.log")
+    payload = _datagrams(lines[:300])
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.server", "-f", cfg],
+            cwd=root, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            flushed_s = None
+            while time.perf_counter() - t0 < 180:
+                if proc.poll() is not None:
+                    break
+                for d in payload:
+                    tx.sendto(d, ("127.0.0.1", port))
+                if os.path.exists(tsv):
+                    with open(tsv) as f:
+                        if "api." in f.read():
+                            flushed_s = time.perf_counter() - t0
+                            break
+                time.sleep(0.5)
+            alive = proc.poll() is None
+            if alive:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            tx.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    _check(alive, f"cli: the daemon exited early (rc {proc.returncode}):\n"
+           + tail)
+    _check(flushed_s is not None,
+           "cli: the ticker never wrote a sent line to the TSV:\n" + tail)
+    _check(rc == 0, f"cli: exit code {rc} after SIGTERM:\n" + tail)
+    with open(tsv) as f:
+        rows = sum(1 for _ in f)
+    return dict(first_flush_s=flushed_s, tsv_rows=rows, exit_code=rc)
+
+
+def server_path(device, lines, udp_ims) -> dict:
+    """The Server on `device` at the default widths, the way the default
+    config runs it: phase 4's lines in phase 8's datagrams through its
+    UDP listener (the C++ reader, the pipeline thread's pump(20), K1 on
+    every step), one manual flush (the flush worker: K2 in compute_flush,
+    generate_frame, the debug sink), then a second, smaller interval and
+    a third during a profile capture; the HTTP API; shutdown; and the
+    CLI daemon in a process of its own. The first flush must equal phase
+    8's `udp` InterMetrics and pass phase 4's oracles, with every
+    datagram received and none dropped; the second must hold only the
+    second batch's metrics."""
+    import threading
+    import torch
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+
+    sink = DebugMetricSink()
+    t0 = time.perf_counter()
+    srv = Server(_server_config(), metric_sinks=[sink], device=device)
+    srv.start()
+    out = dict(setup_s=time.perf_counter() - t0)
+    try:
+        agg = srv.aggregator
+        _check(srv._native_readers_active, "server: native readers off")
+        # interval 1: phase 4's lines as phase 8's datagrams
+        datagrams = _datagrams(lines)
+        cuda_ingest.launches = cuda_digest.launches = 0
+        cuda_history.launches = 0
+        steps0 = agg.steps_total
+        base = _lines_seen(agg)
+        t1 = time.perf_counter()
+        send_s = _send_paced(srv, datagrams, "server")
+        _wait_seen(srv, base, len(lines), "server")
+        ingest_s = time.perf_counter() - t1
+        flush_ms, phases, (res, table) = _flush_interval(srv, "server")
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches,
+                    "merge_windows": cuda_history.launches}
+        steps = agg.steps_total - steps0
+        received, dropped = srv.packets_received, srv.packets_dropped
+        _check(received == len(datagrams) and dropped == 0
+               and srv.packets_toolong == 0,
+               f"server: {received} datagrams received of "
+               f"{len(datagrams)}, {dropped} dropped")
+        _check(launches["fused_ingest"] == steps > 0,
+               f"server: {launches['fused_ingest']} K1 launches for "
+               f"{steps} steps")
+        _check(launches["digest_quantiles"] >= 1,
+               "server: K2 never launched by the flush")
+        checked = _check_server_flush(res, table, lines, "server")
+        ims = _app_ims(sink)
+        # the server's sink takes a columnar frame, whose rows are
+        # grouped by kind and aggregate: compare by key
+        gap = _same_intermetrics(ims, udp_ims, "server vs native udp",
+                                 by_key=True)
+        out.update(lines=len(lines), datagrams_sent=len(datagrams),
+                   datagrams_received=received, datagrams_dropped=dropped,
+                   steps=steps, launches=launches, send_s=send_s,
+                   ingest_s=ingest_s, samples_per_s=len(lines) / ingest_s,
+                   flush_ms=flush_ms,
+                   device_update_ms=phases.get("device_update"),
+                   label_ms=phases.get("frame_build"),
+                   sink_fanout_ms=phases.get("sink_fanout"),
+                   ingest_drain_ms=phases.get("ingest_drain"),
+                   intermetrics=len(ims),
+                   worst_percentile_gap_vs_udp=gap, **checked)
+        print("server path (default widths):", json.dumps(out), flush=True)
+
+        # interval 2: a smaller batch; only its metrics come out
+        second = make_lines(np.random.default_rng(5), 80_000)
+        sink.flushed.clear()
+        base = _lines_seen(agg)
+        _send_paced(srv, _datagrams(second), "server interval 2")
+        _wait_seen(srv, base, len(second), "server interval 2")
+        flush2_ms, _ph, (res2, table2) = _flush_interval(
+            srv, "server interval 2")
+        # the table holds the second batch's keys alone (_check_flush
+        # counts them against its oracle), and so does the flush
+        checked2 = _check_server_flush(res2, table2, second,
+                                       "server interval 2")
+        want2 = (checked2["counters"] + checked2["gauges"]
+                 + checked2["sets"] + checked2["timers"]
+                 * (len(AGGREGATES) + len(PERCENTILES)))
+        _check(len(_app_ims(sink)) == want2,
+               f"server interval 2: {len(_app_ims(sink))} app "
+               f"InterMetrics, want {want2}")
+        out.update(interval2=dict(lines=len(second), flush_ms=flush2_ms,
+                                  counters=checked2["counters"],
+                                  timers=checked2["timers"]))
+
+        # the HTTP API
+        port = srv.http_port
+        for path in ("/healthcheck", "/healthz", "/readyz", "/stats",
+                     "/metrics"):
+            code, body = _http(port, path)
+            _check(code == 200, f"server: GET {path} answered {code}")
+        expo = body.decode()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated(device)
+        free, total = torch.cuda.mem_get_info(device)
+        in_use = _hbm_series(expo, "veneur_device_hbm_bytes_in_use")
+        peak = _hbm_series(expo, "veneur_device_hbm_bytes_peak")
+        label = f"cuda:{torch.cuda.current_device()}"
+        _check(label in in_use and label in peak,
+               f"server: /metrics has no veneur.device.hbm_* for {label}")
+        _check(abs(in_use[label] - allocated) <= 64 << 20
+               and in_use[label] <= peak[label]
+               and in_use[label] <= total - free,
+               f"server: hbm_bytes_in_use {in_use[label]:.0f} against "
+               f"memory_allocated {allocated}, peak {peak[label]:.0f}, "
+               f"in use on the card by mem_get_info {total - free}")
+        stats = json.loads(_http(port, "/stats")[1])
+        out.update(hbm=dict(in_use=in_use[label], peak=peak[label],
+                            memory_allocated=allocated,
+                            device_used=total - free, total=total),
+                   stats_processed=stats["processed"])
+
+        # interval 3 under a one-second profile capture: 20k-line waves
+        # (two ingest steps each) until the capture has replied
+        third = _datagrams(make_lines(np.random.default_rng(6), 20_000))
+        got = {}
+
+        def capture():
+            try:
+                got["reply"] = _http(port, "/debug/profile?seconds=1")
+            except BaseException as e:      # reported on this thread
+                got["error"] = e
+        th = threading.Thread(target=capture)
+        base = _lines_seen(agg)
+        waves = 0
+        th.start()
+        while th.is_alive() and waves < 100:
+            _send_paced(srv, third, "server interval 3")
+            waves += 1
+            _wait_seen(srv, base, waves * 20_000, "server interval 3")
+        th.join(timeout=120)
+        _check("reply" in got and got["reply"][0] == 200,
+               f"server: GET /debug/profile: {got}")
+        prof = _trace_kernels(json.loads(got["reply"][1])["trace_dir"], 1.0)
+        k1 = [n for n in prof["names"] if "fused_ingest" in n]
+        _check(prof["kernel_events"] > 0 and k1,
+               f"server: the profile holds {prof['kernel_events']} kernel "
+               f"events and no K1 symbol: {prof['names'][:20]}")
+        out.update(profile=dict(waves=waves,
+                                kernel_events=prof["kernel_events"],
+                                k1_symbol=k1[0],
+                                kernel_names=len(prof["names"]),
+                                busy_us=prof["busy_us"],
+                                busy_share=prof["busy_share"]))
+        print(f"server profile: {prof['kernel_events']} CUDA kernel events "
+              f"in 1 s, K1 symbol {k1[0]!r} among them; the card busy "
+              f"{prof['busy_share'] * 100:.2f}% of the window", flush=True)
+        _check(srv.trigger_flush(timeout=300), "server: flush 3 failed")
+    finally:
+        t2 = time.perf_counter()
+        srv.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t2
+    _check(not srv._pipeline_thread.is_alive()
+           and not srv._flush_thread.is_alive(),
+           "server: shutdown left the pipeline or flush thread running")
+    del srv, agg, res, table, res2, table2
+    torch.cuda.empty_cache()
+    out["cli"] = _cli_daemon(lines)
     return out
 
 
@@ -1761,7 +2174,7 @@ def main() -> int:
           f"{main['flush_ms']:.1f} ms")
 
     # phase 8, right after phase 4: the same lines on the native path
-    nat = native_path(device, lines, main_ims)
+    nat, udp_ims = native_path(device, lines, main_ims)
     del main_ims
     for route, r in nat.items():
         print(f"native path, {route}, oracles:", json.dumps(
@@ -1775,6 +2188,25 @@ def main() -> int:
     print(f"native path on {card}: " + ", ".join(
         f"{route} {r['samples_per_s']:.0f} samples/s" for route, r in
         nat.items()) + f" (Python path {main['samples_per_s']:.0f})")
+
+    # phase 9, after phase 8: the Server and the CLI on the card
+    srv = server_path(device, lines, udp_ims)
+    del udp_ims
+    print("server path:", json.dumps(srv))
+    print(f"server path on {card}: {srv['samples_per_s']:.0f} samples/s "
+          f"(native udp {nat['udp']['samples_per_s']:.0f}); flush "
+          f"{srv['flush_ms']:.1f} ms (device_update "
+          f"{srv['device_update_ms']:.1f}, label {srv['label_ms']:.1f}, "
+          f"sink fan-out {srv['sink_fanout_ms']:.1f}; native udp flush "
+          f"{nat['udp']['flush_ms']:.1f}); K1 "
+          f"{srv['launches']['fused_ingest']} launches for "
+          f"{srv['steps']} steps, K2 "
+          f"{srv['launches']['digest_quantiles']}; datagrams "
+          f"{srv['datagrams_received']} received of "
+          f"{srv['datagrams_sent']}, {srv['datagrams_dropped']} dropped; "
+          f"CLI first flush in {srv['cli']['first_flush_s']:.1f} s, exit "
+          f"code {srv['cli']['exit_code']}")
+    torch.cuda.empty_cache()
 
     big, big_k2 = million_keys(device)
     print("1M-key phase:", json.dumps(big))
@@ -1837,14 +2269,22 @@ def main() -> int:
         dict(name="fused_ingest", route="cuda",
              source=src + "fused_ingest.cu",
              replaces="veneur_tpu/ops/pallas_ingest.py:310",
-             launches=main["launches"]["fused_ingest"],
+             launches=srv["launches"]["fused_ingest"],
+             launches_by_phase={
+                 "4": main["launches"]["fused_ingest"],
+                 "8_udp": nat["udp"]["launches"]["fused_ingest"],
+                 "9": srv["launches"]["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None),
         dict(name="digest_quantiles", route="cuda",
              source=src + "digest_quantiles.cu",
              replaces="veneur_tpu/ops/pallas_digest.py:189",
-             launches=main["launches"]["digest_quantiles"],
+             launches=srv["launches"]["digest_quantiles"],
+             launches_by_phase={
+                 "4": main["launches"]["digest_quantiles"],
+                 "8_udp": nat["udp"]["launches"]["digest_quantiles"],
+                 "9": srv["launches"]["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],

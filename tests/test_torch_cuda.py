@@ -28,7 +28,10 @@ machine has no JAX.)
   run on the CPU, single-ring through `feed` and with four rings;
 - the history tier on the card: the fused ring equals a replay of the
   archived frames, and a range batch matches the same batch over a CPU
-  copy of the ring.
+  copy of the ring;
+- the Server on the card against the Server on the CPU: the same
+  datagrams over loopback (the C++ engine's UDP readers), the same
+  flushed InterMetrics.
 """
 
 import time
@@ -662,3 +665,81 @@ def test_history_on_the_card_matches_the_cpu(cuda):
         else:
             assert got[key].tobytes() == want[key].tobytes(), key
     assert (got["r_set_estimate"] > 0).any()
+
+
+def _server_run(device, grams):
+    """One Server on `device` takes `grams` over loopback and flushes once;
+    returns its app InterMetrics sorted by key and its counters."""
+    import socket
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    sink = DebugMetricSink()
+    srv = Server(Config(
+        interval="3600s", hostname="h", metric_max_length=4096,
+        read_buffer_size_bytes=1 << 22, percentiles=[0.5, 0.99],
+        aggregates=["min", "max", "count"],
+        statsd_listen_addresses=["udp://127.0.0.1:0"],
+        tpu_counter_capacity=1 << 12, tpu_gauge_capacity=256,
+        tpu_status_capacity=64, tpu_set_capacity=64,
+        tpu_histo_capacity=256), metric_sinks=[sink], device=device)
+    srv.start()
+    try:
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        for i, g in enumerate(grams):
+            tx.sendto(g, srv.local_addr())
+            if i % 32 == 31:        # paced: the socket buffer holds them
+                time.sleep(0.002)
+        tx.close()
+        n = sum(g.count(b"\n") + 1 for g in grams)
+        t0 = time.time()
+        agg = srv.aggregator
+        while (agg.processed + agg.dropped_capacity + srv.parse_errors
+               + agg.extra_parse_errors()) < n:
+            assert time.time() - t0 < 60, "lines not all seen"
+            time.sleep(0.01)
+        # read before the flush: its self-metrics re-enter the pipeline
+        counts = (agg.processed, agg.dropped_capacity, srv.packets_received,
+                  srv.packets_dropped)
+        assert srv.trigger_flush(timeout=120)
+    finally:
+        srv.shutdown()
+    ims = sorted((m for m in sink.flushed
+                  if not m.name.startswith("veneur.")
+                  and m.name != "ssf.names_unique"),
+                 key=lambda m: (m.name, tuple(m.tags)))
+    return ims, counts
+
+
+def test_server_on_the_card_matches_the_cpu(cuda):
+    """The Server's main path (native UDP readers → K1 steps → flush with
+    K2) on the card against the same Server on the CPU."""
+    rng = np.random.default_rng(8)
+    lines = []
+    for i in range(6000):
+        k = i % 4
+        if k == 0:
+            lines.append(b"c.%d:%d|c|#env:e%d" % (i % 500, 1 + i % 5, i % 3))
+        elif k == 1:
+            lines.append(b"t.%d:%.4f|ms" % (int(rng.zipf(1.3)) % 200,
+                                            rng.lognormal(3.0, 0.5)))
+        elif k == 2:
+            lines.append(b"g.%d:%.3f|g" % (i % 100, rng.normal()))
+        else:
+            lines.append(b"s.%d:u%d|s" % (i % 40, rng.integers(0, 5000)))
+    grams = [b"\n".join(lines[i:i + 40]) for i in range(0, len(lines), 40)]
+    cims, ccounts = _server_run("cpu", grams)
+    cuda_ingest.launches = cuda_digest.launches = 0
+    gims, gcounts = _server_run(cuda, grams)
+    assert gcounts == ccounts == (len(lines), 0, len(grams), 0)
+    assert cuda_ingest.launches >= 1 and cuda_digest.launches >= 1
+    assert [(m.name, m.tags, m.type) for m in gims] == \
+        [(m.name, m.tags, m.type) for m in cims]
+    for g, c in zip(gims, cims):
+        if g.name.endswith("percentile"):
+            assert abs(g.value - c.value) <= 1e-2 * abs(c.value) + 1e-6, \
+                g.name
+        elif g.name.startswith("s."):
+            assert abs(g.value - c.value) <= 1e-5 * c.value, g.name
+        else:
+            assert g.value == c.value, g.name

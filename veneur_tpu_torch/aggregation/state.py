@@ -94,13 +94,13 @@ class DeviceState(NamedTuple):
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
-    another. Never falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                               "run the plain versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    another. Never falls back to the CPU on its own: a card that is asked
+    for, by default or by name, and absent raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the plain versions on the CPU")
+    return dev
 
 
 def empty_state(spec: TableSpec, device) -> DeviceState:

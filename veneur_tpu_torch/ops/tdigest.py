@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.ops import cuda_digest
+from veneur_tpu_torch.utils.numerics import twofloat_add
 
 DEFAULT_COMPRESSION = 100.0
 # 3 cells per k-unit: finer interior cells shrink the interpolation bias
@@ -63,6 +64,25 @@ class TDigestTable(NamedTuple):
     sum_lo: torch.Tensor
     recip_hi: torch.Tensor
     recip_lo: torch.Tensor
+
+
+def empty_table(key_shape, compression: float = DEFAULT_COMPRESSION,
+                cells_per_k: int = DEFAULT_CELLS_PER_K,
+                exact_extremes: int = DEFAULT_EXACT_EXTREMES,
+                device="cpu") -> TDigestTable:
+    """Empty digests of shape key_shape on `device` (min +inf, max -inf)."""
+    key_shape = ((key_shape,) if isinstance(key_shape, int)
+                 else tuple(key_shape))
+    c = centroid_capacity(compression, cells_per_k, exact_extremes)
+    f = dict(dtype=torch.float32, device=device)
+    z = torch.zeros(key_shape, **f)
+    return TDigestTable(
+        mean=torch.zeros(key_shape + (c,), **f),
+        weight=torch.zeros(key_shape + (c,), **f),
+        min=torch.full(key_shape, math.inf, **f),
+        max=torch.full(key_shape, -math.inf, **f),
+        count_hi=z, count_lo=z.clone(), sum_hi=z.clone(), sum_lo=z.clone(),
+        recip_hi=z.clone(), recip_lo=z.clone())
 
 
 def _k1(q, compression):
@@ -223,3 +243,38 @@ def quantiles(table: TDigestTable, qs) -> torch.Tensor:
         table.min.reshape(-1).contiguous(),
         table.max.reshape(-1).contiguous(), qs)
     return flat.reshape(lead + (qs.shape[0],))
+
+
+def add_batch_single(table: TDigestTable, values, weights, *,
+                     compression: float = DEFAULT_COMPRESSION,
+                     cells_per_k: int = DEFAULT_CELLS_PER_K,
+                     exact_extremes: int = DEFAULT_EXACT_EXTREMES
+                     ) -> TDigestTable:
+    """Add a batch of samples (weight 0 = an empty slot) to ONE digest, a
+    table with key shape (): the cells and the batch are compressed
+    together, and the scalar aggregates take the batch's live samples."""
+    dev = table.mean.device
+    values = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    m = torch.cat([table.mean, values])
+    w = torch.cat([table.weight, weights])
+    m2, w2 = compress_rows(m[None, :], w[None, :], compression=compression,
+                           cells_per_k=cells_per_k,
+                           out_c=table.mean.shape[-1],
+                           exact_extremes=exact_extremes)
+    live = weights > 0
+    ch, cl = twofloat_add(table.count_hi, table.count_lo, weights.sum())
+    sh, sl = twofloat_add(table.sum_hi, table.sum_lo,
+                          torch.where(live, weights * values, 0.0).sum())
+    rh, rl = twofloat_add(
+        table.recip_hi, table.recip_lo,
+        torch.where(live, weights / torch.where(live, values, 1.0),
+                    0.0).sum())
+    return TDigestTable(
+        mean=m2[0], weight=w2[0],
+        min=torch.minimum(table.min,
+                          torch.where(live, values, math.inf).min()),
+        max=torch.maximum(table.max,
+                          torch.where(live, values, -math.inf).max()),
+        count_hi=ch, count_lo=cl, sum_hi=sh, sum_lo=sl,
+        recip_hi=rh, recip_lo=rl)

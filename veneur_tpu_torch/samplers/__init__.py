@@ -1,1 +1,2 @@
-"""DogStatsD metric-line parsing and the InterMetric record."""
+"""The wire-facing parse layer: DogStatsD metrics, events and service
+checks, SSF sample conversion, and the InterMetric record."""

@@ -199,6 +199,12 @@ class Aggregator:
                 self.batcher.add_histo(slot, float(m.value), rate)
         self.processed += 1
 
+    def extra_parse_errors(self) -> int:
+        """Parse errors counted below the Python layer: none here, where
+        the server's Python parser counts every line it refuses (the
+        native backend adds its engine's)."""
+        return 0
+
     # -- flush ---------------------------------------------------------------
     def swap(self):
         """Detach the live state and key table and start fresh ones."""

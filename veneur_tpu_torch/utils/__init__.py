@@ -1,1 +1,2 @@
-"""Numerics and hashing shared by the port's host and device code."""
+"""Shared helpers: two-float numerics and hashing for the host and device
+code, the statsd line emitter, crash reporting and atomic file appends."""
