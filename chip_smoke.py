@@ -114,6 +114,32 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    samples/s, the flush's wall and phase ms, launches and datagram
    counts; the kernels line carries phase 9's K1 and K2 launches (and
    each phase's).
+10. (run right after phase 6, whose ring it frees first) the Server with
+   the history, query and watch tiers on, at the default widths and the
+   default ring (90 windows, 3 tiers, history_max_keys 2^20: 3.2 GB),
+   configured otherwise as phase 9's: phase 6's 16 intervals of 12,500
+   lines (plus one line of a watched counter worth the interval's
+   number, and three service checks in the last) through the UDP
+   listener, each flushed by hand with the ring write fused in. Each
+   flush's counters and gauges must equal phase 6's for the interval;
+   a counter watch (threshold 12.5) must go OK->ALERT at the 13th flush
+   and at no other, its SSE event read back through GET /watch/stream.
+   Before the last flush, one instant batch over every kind (counters,
+   gauges, sets, timers, service-check status) through POST /query must
+   equal the last flush's InterMetrics value for value, and 200 small
+   queries give the instant latency through HTTP (p50, p99). Then phase
+   6's range batch through POST /query (25 steps: each interval, the
+   whole range, 4-interval timer windows): one K2 and one K3 launch;
+   each counter point the interval's flushed value (and phase 6's), the
+   whole range their exact sum, each gauge point the flushed value; K3's
+   words on the Server's own ring equal its plain version's and numpy's,
+   the answers' set estimates are those words' estimates, and K2's rows
+   agree with its plain version within rtol/atol 2e-5. Prints the
+   instant latency, the range batch's HTTP wall (cold and warm) beside
+   phase 6's program, the flush wall and device_update with the ring,
+   the watch's evaluation time an interval, and the K1, K2 and K3
+   launches of the phase, which the kernels line carries (K3's as its
+   launches).
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -2033,7 +2059,436 @@ def history_path(device, clock_hz) -> dict:
         set_gather_device_ms=set_gather_device_ms,
         gather_ms=gather_ms, counter_fold_ms=fold_ms,
         histo_compress_step_ms=compress_ms,
-        cpu_range_s=cpu_s, range_max_err=range_err), range_k2
+        cpu_range_s=cpu_s, range_max_err=range_err), range_k2, \
+        _frame_values(frames)
+
+
+def _key(meta):
+    return (meta.name, ",".join(meta.tags))
+
+
+def _frame_values(frames):
+    """Each interval's flushed counters and gauges by (name, joined
+    tags): the oracle phase 10 holds the Server's flushes and its range
+    answers to."""
+    return [{kind: {_key(m): float(v) for (_s, m), v in
+                    zip(table.get_meta(kind), res[kind])}
+             for kind in ("counter", "gauge")}
+            for table, res, _raw in frames]
+
+
+# -- phase 10: POST /query, the ring and watches on the Server -----------------
+
+TIER_WATCH_AT = 13                  # the watch's counter crosses here
+
+
+def _tier_lines(i: int):
+    """Interval i (0-based) of phase 10: phase 6's lines, one line of the
+    watched counter (worth i + 1), and (last interval) three service
+    checks, so the instant batch finds every kind."""
+    lines = make_lines(np.random.default_rng(100 + i), 12_500)
+    lines.append(b"watch.hits:%d|c" % (i + 1))
+    if i == HIST_INTERVALS - 1:
+        lines += [b"_sc|svc.check.%d|%d|#zone:a" % (k, k) for k in range(3)]
+    return lines
+
+
+def _post_json(port: int, path: str, body) -> tuple:
+    """(status, decoded body, wall ms) of one POST through HTTP."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check(code in (200, 201), f"POST {path}: {code} {raw[:300]!r}")
+    return code, json.loads(raw), ms
+
+
+INSTANT_BATCH = {"queries": [
+    {"prefix": "api.requests.12", "kinds": ["counter"]},
+    {"prefix": "queue.depth.1", "kinds": ["gauge"]},
+    {"prefix": "users.active.1", "kinds": ["set"]},
+    {"match": "api.latency.1?", "kinds": ["timer"], "quantiles": PERCENTILES},
+    {"prefix": "svc.check.", "kinds": ["status"]},
+    {"name": "watch.hits"},
+]}
+
+
+def _check_instant(out, ims, label) -> int:
+    """Every instant match equals the next flush's InterMetric for its
+    key, value for value."""
+    by_key = {(m.name, ",".join(sorted(m.tags))): m.value for m in ims}
+    kinds, n = set(), 0
+    for res in out["results"]:
+        for m in res["matches"]:
+            tags = ",".join(sorted(m["tags"]))
+            kinds.add(m["kind"])
+            if m["kind"] == "set":
+                want = {(m["name"], tags): m["estimate"]}
+            elif m["kind"] == "timer":
+                want = {(f"{m['name']}.{int(q * 100)}percentile", tags):
+                        m["quantiles"][str(float(q))] for q in PERCENTILES}
+                want.update({(m["name"] + "." + a, tags): m[a]
+                             for a in ("min", "max", "count", "sum")})
+            else:
+                want = {(m["name"], tags): m["value"]}
+            for key, v in want.items():
+                _check(key in by_key and by_key[key] == v,
+                       f"{label}: query {key} = {v}, the flush "
+                       f"{by_key.get(key)}")
+                n += 1
+    _check(kinds == {"counter", "gauge", "set", "timer", "status"},
+           f"{label}: the batch found kinds {sorted(kinds)}")
+    return n
+
+
+def _range_batch_body(iv: float) -> dict:
+    """Phase 6's batch through POST /query: every interval of 16 as a
+    step (counters, gauges, sets), one step over all 16 (counters, sets),
+    timers in 4-interval windows every 2 intervals: 25 steps."""
+    rng = dict(range=HIST_INTERVALS * iv)
+    per = dict(rng, step=iv)
+    return {"queries": [
+        dict(per, prefix="api.requests.", kinds=["counter"]),
+        dict(per, prefix="queue.depth.", kinds=["gauge"]),
+        dict(per, prefix="users.active.", kinds=["set"]),
+        dict(rng, prefix="api.requests.", kinds=["counter"]),
+        dict(rng, prefix="users.active.", kinds=["set"]),
+        dict(rng, prefix="api.latency.", kinds=["timer"], window=4 * iv,
+             step=2 * iv, quantiles=PERCENTILES)]}
+
+
+def _check_range_answers(out, flushes, frames, label) -> dict:
+    """Counters: each point the interval's flushed value, the whole range
+    their exact sum; gauges: each point the interval's flushed value;
+    both against the Server's own flushes and phase 6's."""
+    res = out["results"]
+    n = 0
+    for qi, kind in ((0, "counter"), (1, "gauge")):
+        _check(res[qi]["matches"], f"{label}: no {kind} matched")
+        for m in res[qi]["matches"]:
+            key = (m["name"], ",".join(m["tags"]))
+            pts = m["points"]
+            _check([p["seq"] for p in pts] == [[i, i] for i in range(
+                HIST_INTERVALS)], f"{label}: {key} points {len(pts)}")
+            # a counter the interval did not flush reads 0, a gauge none
+            absent = 0.0 if kind == "counter" else None
+            for i, p in enumerate(pts):
+                want = flushes[i][kind].get(key, absent)
+                _check(p["value"] == want
+                       == frames[i][kind].get(key, absent),
+                       f"{label}: {kind} {key} interval {i}: {p['value']} "
+                       f"vs the flush {want} and phase 6 "
+                       f"{frames[i][kind].get(key, absent)}")
+                n += 1
+    for m in res[3]["matches"]:
+        key = (m["name"], ",".join(m["tags"]))
+        want = sum(f["counter"].get(key, 0.0) for f in flushes)
+        _check(m["points"][0]["value"] == want,
+               f"{label}: counter {key} over the range: "
+               f"{m['points'][0]['value']} != {want}")
+        n += 1
+    _check(all(r.get("range") for r in res), f"{label}: not range answers")
+    return dict(points_checked=n, truncated=[bool(r.get("truncated"))
+                                             for r in res])
+
+
+@contextlib.contextmanager
+def merge_calls():
+    """Yields a list that gathers (args, kwargs, output) of every K3 call
+    made inside the block, by wrapping cuda_history.merge_windows_packed
+    (history.merge looks it up at each call); restores it after."""
+    from veneur_tpu_torch.ops import cuda_history
+    calls, orig = [], cuda_history.merge_windows_packed
+
+    def record(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    cuda_history.merge_windows_packed = record
+    try:
+        yield calls
+    finally:
+        cuda_history.merge_windows_packed = orig
+
+
+def _sse_reader(port: int, events: list):
+    """GET /watch/stream on a thread of its own, gathering each event in
+    `events`; returns (thread, response) (close the response to end it)."""
+    import threading
+    import urllib.request
+    from veneur_tpu_torch.cli.watch import tail_events
+    resp = urllib.request.urlopen(
+        f"http://127.0.0.1:{port}/watch/stream", timeout=600)
+
+    def run():
+        try:
+            for ev in tail_events(resp):
+                events.append((time.time(), ev))
+        except (OSError, ValueError):
+            pass                    # the response was closed
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, resp
+
+
+def server_tiers_path(device, frames, clock_hz) -> dict:
+    """The Server at the default widths with the history, query and
+    watch tiers on, as the default config runs it otherwise (native
+    ingest, the C++ reader): phase 6's 16 intervals through the UDP
+    listener, each flushed by hand with the ring write fused in, a
+    counter watch evaluated on every flush, then instant and range
+    queries through POST /query."""
+    import torch
+    from veneur_tpu_torch.aggregation.step import _take
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.ops import hll as hll_ops
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+
+    sink = DebugMetricSink()
+    t0 = time.perf_counter()
+    srv = Server(_server_config(
+        profile_capture_enabled=False, history_enabled=True,
+        query_enabled=True, watch_enabled=True, history_windows=90,
+        history_decimation_tiers=3, history_max_keys=1 << 20),
+        metric_sinks=[sink], device=device)
+    srv.start()
+    out = dict(setup_s=time.perf_counter() - t0)
+    events, reader = [], None
+    try:
+        port, agg, eng = srv.http_port, srv.aggregator, srv.watch_engine
+        iv = srv.interval
+        _check(srv.history.spec.hbm_bytes() == 3_210_117_120,
+               f"ring of {srv.history.spec.hbm_bytes()} bytes")
+        _code, reg, _ms = _post_json(port, "/watch", {
+            "name": "watch.hits", "threshold": TIER_WATCH_AT - 0.5})
+        reader, resp = _sse_reader(port, events)
+        offered = []                    # the last interval handed to watches
+        orig_offer = eng.offer
+
+        def offer(*args):
+            offered[:] = args
+            return orig_offer(*args)
+        eng.offer = offer
+        cuda_ingest.launches = cuda_digest.launches = 0
+        cuda_history.launches = 0
+        flushes, flush_ms, phase_ms, fired_at = [], [], [], None
+        for i in range(HIST_INTERVALS):
+            lines = _tier_lines(i)
+            base = _lines_seen(agg)
+            _send_paced(srv, _datagrams(lines), f"tiers interval {i}")
+            # the engine hands service checks to the Python parser, in
+            # the pump call that read them, so it counts the rest
+            _wait_seen(srv, base, sum(not ln.startswith(b"_sc")
+                                      for ln in lines),
+                       f"tiers interval {i}")
+            if i == HIST_INTERVALS - 1:
+                # the instant batch, then its latency through HTTP, then
+                # the flush the batch must equal
+                _c, inst, inst_ms = _post_json(port, "/query", INSTANT_BATCH)
+                lat = [_post_json(port, "/query", {"queries": [
+                    {"name": "api.requests.12", "kinds": ["counter"]},
+                    {"name": "api.latency.1", "kinds": ["timer"]}]})[2]
+                    for _ in range(200)]
+                sink.flushed.clear()
+            k2_before = cuda_digest.launches
+            wall, phases, (res, table) = _flush_interval(
+                srv, f"tiers interval {i}")
+            flush_ms.append(wall)
+            phase_ms.append({k: v for k, v in phases.items() if v})
+            flushes.append({kind: {_key(m): float(v) for (_s, m), v in
+                                   zip(table.get_meta(kind), res[kind])}
+                            for kind in ("counter", "gauge")})
+            app = {k: {key: v for key, v in f.items()
+                       if not key[0].startswith(("veneur.", "ssf.",
+                                                 "watch."))}
+                   for k, f in flushes[-1].items()}
+            _check(app == frames[i], f"tiers interval {i}: the Server's "
+                   "counters and gauges differ from phase 6's flush")
+            t_ev = time.perf_counter()
+            while eng.intervals_evaluated + eng.intervals_skipped < i + 1:
+                _check(time.perf_counter() - t_ev < 60,
+                       f"tiers interval {i}: the watch never evaluated")
+                time.sleep(0.002)
+            _check(cuda_digest.launches - k2_before >= 2,
+                   f"tiers interval {i}: K2 not launched by the flush and "
+                   "the watch")
+            if i + 1 == TIER_WATCH_AT:
+                t_ev = time.perf_counter()
+                while not events:
+                    _check(time.perf_counter() - t_ev < 30,
+                           "the watch's SSE event never came")
+                    time.sleep(0.005)
+                fired_at = i + 1
+            _check(len(events) == (fired_at is not None),
+                   f"tiers interval {i}: {len(events)} watch events")
+        checked = _check_instant(inst, _app_ims(sink), "tiers instant")
+        ev = events[0][1]
+        _check(ev["id"] == reg["id"] and ev["from"] == "OK"
+               and ev["to"] == "ALERT" and ev["value"] == TIER_WATCH_AT,
+               f"watch event {ev}")
+        listing = json.loads(_http(port, "/watch")[1])["watches"][0]
+        _check(listing["status"] == "ALERT"
+               and listing["value"] == HIST_INTERVALS, f"watch {listing}")
+        launches_ingest = {"fused_ingest": cuda_ingest.launches,
+                           "digest_quantiles": cuda_digest.launches,
+                           "merge_windows": cuda_history.launches}
+        _check(launches_ingest["fused_ingest"] == agg.steps_total > 0,
+               "tiers: K1 launches != ingest steps")
+        _check(launches_ingest["merge_windows"] == 0,
+               "tiers: K3 launched before any range query")
+
+        # the range batch: cold, then warm; K2's and K3's calls captured
+        # from one more, on the Server's own tensors
+        body = _range_batch_body(iv)
+        k2_0, k3_0 = cuda_digest.launches, cuda_history.launches
+        _c, rng_out, cold_ms = _post_json(port, "/query", body)
+        batch_launches = {"digest_quantiles": cuda_digest.launches - k2_0,
+                          "merge_windows": cuda_history.launches - k3_0}
+        _check(batch_launches == {"digest_quantiles": 1, "merge_windows": 1},
+               f"tiers: a range batch launched {batch_launches}")
+        q_t0 = srv._t_query.snapshot(qs=())[0][1]
+        q_sum0, q_n0 = q_t0.sum, q_t0.count
+        warm_ms = [_post_json(port, "/query", body)[2] for _ in range(3)]
+        q_t1 = srv._t_query.snapshot(qs=())[0][1]
+        range_engine_ms = (q_t1.sum - q_sum0) / max(q_t1.count - q_n0, 1) / 1e6
+        range_checked = _check_range_answers(rng_out, flushes, frames,
+                                             "tiers range")
+        plans = []
+        orig_plan = srv.query_engine._plan_ranges
+
+        def plan(batch):
+            plans.append(orig_plan(batch))
+            return plans[-1]
+        srv.query_engine._plan_ranges = plan
+        try:
+            with digest_calls() as k2_calls, merge_calls() as k3_calls:
+                _c, again, _ms = _post_json(port, "/query", body)
+        finally:
+            del srv.query_engine._plan_ranges
+        # the phase's launches end here: the calls below compare and time
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches,
+                    "merge_windows": cuda_history.launches}
+        _check(json.dumps(again) == json.dumps(rng_out),
+               "tiers: a repeated range batch answered otherwise")
+        _check(len(k2_calls) == 1 and len(k3_calls) == 1,
+               f"tiers: captured {len(k2_calls)} K2, {len(k3_calls)} K3")
+        (rows, sel), kw, merged = k3_calls[0]
+        p = kw["precision"]
+        idx = kw["idx"]
+        set_rows = _take(rows, idx)
+        plain = cuda_history.merge_windows_packed_plain(set_rows, sel,
+                                                        precision=p)
+        _check(torch.equal(merged, plain), "tiers: K3 differs from its "
+               "plain version on the Server's ring")
+        _check(np.array_equal(merged.cpu().numpy(), _merge_np(
+            set_rows.cpu().numpy(), sel.cpu().numpy(), p)),
+            "tiers: K3 differs from numpy on the Server's ring")
+        # the answers' set estimates are the estimates of K3's words
+        est = hll_ops.estimate_packed_rows(merged, precision=p).cpu().numpy()
+        need_sets = plans[0]["need"][3]
+        n_set = 0
+        for qi, soff in ((2, 0), (4, HIST_INTERVALS)):
+            for m in rng_out["results"][qi]["matches"]:
+                key = ("set", m["name"], ",".join(m["tags"]))
+                row = srv.history.rows_for_keys(3, [key])[0]
+                r = need_sets.index(row)
+                for j, pt in enumerate(m["points"][::-1]):
+                    want = float(est[r, soff + j])
+                    _check(pt["estimate"] == (want if math.isfinite(want)
+                                              else None),
+                           f"tiers: set {key} step {soff + j}")
+                    n_set += 1
+        k2 = _digest_case(device, k2_calls[0], clock_hz)
+        def k3_as_the_server_calls_it():
+            cuda_history.merge_windows_packed(rows, sel, precision=p,
+                                              idx=idx)
+        k3_ms = _time_ms(k3_as_the_server_calls_it, device, 20)
+        k3_device_ms = _device_ms(k3_as_the_server_calls_it, 20, clock_hz)
+        k3_plain_ms = _time_ms(lambda: cuda_history.merge_windows_packed_plain(
+            set_rows, sel, precision=p), device, 2, warmup=1)
+        k3_bytes, k3_ops = _merge_work(idx.numel(), sel.cpu().numpy(),
+                                       srv.history.spec.hll_words)
+        k3_bound_ms, k3_by = _bound(k3_bytes, k3_ops)
+        q_t = srv._t_query.snapshot(qs=())[0][1]
+        # one watch evaluation's parts, timed on the idle Server (the
+        # flush worker's labelling and sink fan-out run beside the engine
+        # thread during a flush): resolution and plan, the launch with its
+        # copy back, on the last interval's detached state
+        eng.offer = orig_offer
+        watch_launches, watch_dispatch_ns = eng.launches_total, eng.dispatch_ns
+        state, table = offered[0], offered[1]
+        with eng._lock:
+            watches = sorted(eng._watches.values(), key=lambda w: w.wid)
+        plan_ms, eval_ms = [], []
+        for _ in range(5):
+            eng._plan_key = None
+            t_a = time.perf_counter()
+            wplan = eng._index_and_plan(table, watches)
+            t_b = time.perf_counter()
+            eng._materialize(eng._launch(state, wplan), wplan, 0)
+            t_c = time.perf_counter()
+            plan_ms.append((t_b - t_a) * 1e3)
+            eval_ms.append((t_c - t_b) * 1e3)
+        del state, table, offered[:]
+        out.update(
+            lines=sum(len(_tier_lines(i)) for i in range(HIST_INTERVALS)),
+            intervals=HIST_INTERVALS, steps=agg.steps_total,
+            launches=launches, launches_before_queries=launches_ingest,
+            range_batch_launches=batch_launches,
+            flush_ms=float(np.median(flush_ms)), flush_ms_each=flush_ms,
+            device_update_ms=float(np.median(
+                [ph.get("device_update", 0.0) for ph in phase_ms])),
+            flush_phase_ms_each=phase_ms,
+            instant_checked=checked,
+            instant_ms_p50=float(np.percentile(lat, 50)),
+            instant_ms_p99=float(np.percentile(lat, 99)),
+            instant_batch_ms=inst_ms,
+            range_ms_cold=cold_ms, range_ms_warm=warm_ms,
+            range_engine_ms_warm=range_engine_ms,
+            range_reply_bytes=len(json.dumps(rng_out)),
+            query_requests=srv._c_query_requests.value(),
+            query_launches=srv.query_engine.launches_total,
+            query_duration_ms_mean=q_t.sum / max(q_t.count, 1) / 1e6,
+            watch_fired_at=fired_at,
+            watch_eval_ms_mean=srv._c_watch_eval_ns.value()
+            / max(eng.intervals_evaluated, 1) / 1e6,
+            watch_launches=watch_launches,
+            watch_dispatch_ms_mean=watch_dispatch_ns
+            / max(watch_launches, 1) / 1e6,
+            watch_idle_plan_ms=float(np.median(plan_ms)),
+            watch_idle_launch_ms=float(np.median(eval_ms)),
+            watch_intervals=eng.intervals_evaluated,
+            history_writes=srv._c_history_writes.value(),
+            set_points_checked=n_set, **range_checked,
+            k2=k2, k3=dict(rows=int(idx.numel()), steps=int(sel.shape[0]),
+                           cols=int((sel > 0).any(dim=0).sum()),
+                           ms=k3_ms, device_ms=k3_device_ms,
+                           plain_ms=k3_plain_ms,
+                           bound_ms=k3_bound_ms, bound_by=k3_by,
+                           max_abs_err=0.0))
+    finally:
+        t2 = time.perf_counter()
+        srv.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t2
+        if reader is not None:
+            resp.close()
+            reader.join(timeout=10)
+    _check(not srv._pipeline_thread.is_alive()
+           and not srv._flush_thread.is_alive(),
+           "tiers: shutdown left the pipeline or flush thread running")
+    del srv
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 7: the wide widths ---------------------------------------------------
@@ -2224,7 +2679,7 @@ def main() -> int:
     del main_k2, big_k2
     torch.cuda.empty_cache()
 
-    hist, range_k2 = history_path(device, clock_hz)
+    hist, range_k2, hist_frames = history_path(device, clock_hz)
     print("history path (default ring):", json.dumps(hist))
     print("kernel digest_quantiles (range batch):",
           json.dumps(_digest_sequence(device, range_k2, clock_hz)))
@@ -2238,6 +2693,24 @@ def main() -> int:
           f"range batch {hist['range_ms_warm']['total']:.1f} ms, K3 "
           f"{hist['k3_ms']:.3f} ms")
     del range_k2
+    torch.cuda.empty_cache()
+
+    # phase 10, after phase 6 (whose ring is freed): the Server with the
+    # history, query and watch tiers on
+    tiers = server_tiers_path(device, hist_frames, clock_hz)
+    del hist_frames
+    print("server tiers path:", json.dumps(tiers))
+    print(f"server tiers path on {card}: instant query p50 "
+          f"{tiers['instant_ms_p50']:.2f} ms, p99 "
+          f"{tiers['instant_ms_p99']:.2f} ms through HTTP; range batch "
+          f"{float(np.median(tiers['range_ms_warm'])):.1f} ms warm through "
+          f"the Server (phase 6's program alone "
+          f"{hist['range_ms_warm']['total']:.1f} ms); flush "
+          f"{tiers['flush_ms']:.1f} ms with the ring (phase 9's first "
+          f"{srv['flush_ms']:.1f} ms without); watch evaluation "
+          f"{tiers['watch_eval_ms_mean']:.2f} ms an interval; K2 "
+          f"{tiers['launches']['digest_quantiles']} launches, K3 "
+          f"{tiers['launches']['merge_windows']} on this path")
     torch.cuda.empty_cache()
 
     # phase 3, continued: K3's row-index form and the wide-row paths
@@ -2273,7 +2746,8 @@ def main() -> int:
              launches_by_phase={
                  "4": main["launches"]["fused_ingest"],
                  "8_udp": nat["udp"]["launches"]["fused_ingest"],
-                 "9": srv["launches"]["fused_ingest"]},
+                 "9": srv["launches"]["fused_ingest"],
+                 "10": tiers["launches"]["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None),
@@ -2284,7 +2758,8 @@ def main() -> int:
              launches_by_phase={
                  "4": main["launches"]["digest_quantiles"],
                  "8_udp": nat["udp"]["launches"]["digest_quantiles"],
-                 "9": srv["launches"]["digest_quantiles"]},
+                 "9": srv["launches"]["digest_quantiles"],
+                 "10": tiers["launches"]["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
@@ -2292,7 +2767,10 @@ def main() -> int:
         dict(name="merge_windows", route="cuda",
              source=src + "merge_windows.cu",
              replaces="veneur_tpu/ops/pallas_history.py:92",
-             launches=hist["launches"]["merge_windows"],
+             launches=tiers["launches"]["merge_windows"],
+             launches_by_phase={
+                 "6": hist["launches"]["merge_windows"],
+                 "10": tiers["launches"]["merge_windows"]},
              max_abs_err=merge["max_abs_err"], ms=merge["ms"],
              plain_ms=merge["plain_ms"], bound_ms=merge["bound_ms"],
              bound_by=merge["bound_by"], library_ms=None),

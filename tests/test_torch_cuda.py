@@ -31,7 +31,9 @@ machine has no JAX.)
   copy of the ring;
 - the Server on the card against the Server on the CPU: the same
   datagrams over loopback (the C++ engine's UDP readers), the same
-  flushed InterMetrics.
+  flushed InterMetrics; and with the history, query and watch tiers on,
+  the same POST /query answers (instant, then range over three
+  intervals) and the same watch transitions.
 """
 
 import time
@@ -743,3 +745,125 @@ def test_server_on_the_card_matches_the_cpu(cuda):
             assert abs(g.value - c.value) <= 1e-5 * c.value, g.name
         else:
             assert g.value == c.value, g.name
+
+
+def _tiers_run(device, waves):
+    """One Server on `device` with the history, query and watch tiers on
+    takes each wave of datagrams as an interval: an instant batch before
+    each flush, one range batch after the last; returns the answers and
+    the watch events."""
+    import json
+    import socket
+    import urllib.request
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    srv = Server(Config(
+        interval="3600s", hostname="h", metric_max_length=4096,
+        read_buffer_size_bytes=1 << 22, percentiles=[0.5, 0.99],
+        aggregates=["min", "max", "count"],
+        statsd_listen_addresses=["udp://127.0.0.1:0"],
+        http_address="127.0.0.1:0", query_enabled=True,
+        history_enabled=True, watch_enabled=True, history_windows=8,
+        history_decimation_tiers=2, history_max_keys=1 << 12,
+        tpu_counter_capacity=1 << 12, tpu_gauge_capacity=256,
+        tpu_status_capacity=64, tpu_set_capacity=64,
+        tpu_histo_capacity=256), metric_sinks=[DebugMetricSink()],
+        device=device)
+    srv.start()
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.http_port}{path}",
+            data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    answers = []
+    try:
+        post("/watch", {"prefix": "c.1", "threshold": 40})
+        post("/watch", {"name": "t.1", "kind": "quantile", "quantile": 0.5,
+                        "threshold": 20})
+        sub = srv.watch_engine.hub.subscribe()
+        agg, sent = srv.aggregator, 0
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        for wave in waves:
+            for i, g in enumerate(wave):
+                tx.sendto(g, srv.local_addr())
+                if i % 32 == 31:
+                    time.sleep(0.002)
+            sent += sum(g.count(b"\n") + 1 for g in wave)
+            t0 = time.time()
+            while agg.eng.stats()["processed"] < sent:
+                assert time.time() - t0 < 60, "lines not all seen"
+                time.sleep(0.01)
+            answers.append(post("/query", {"queries": [
+                {"prefix": "c."}, {"prefix": "g."}, {"prefix": "s."},
+                {"prefix": "t.", "quantiles": [0.5, 0.99]}]}))
+            n = srv.watch_engine.intervals_evaluated
+            assert srv.trigger_flush(timeout=120)
+            t0 = time.time()
+            while srv.watch_engine.intervals_evaluated <= n:
+                assert time.time() - t0 < 60, "watch not evaluated"
+                time.sleep(0.01)
+        tx.close()
+        answers.append(post("/query", {"queries": [
+            {"prefix": p, "range": 3 * 3600.0, "step": 3600.0,
+             "quantiles": [0.5, 0.99]} for p in ("c.", "g.", "s.", "t.")]}))
+        events = []
+        while (ev := sub.get(timeout=0.0)) is not None:
+            events.append({k: v for k, v in ev.items() if k != "ts"})
+    finally:
+        srv.shutdown()
+    return answers, events
+
+
+def _close_answers(got, want, where="", tol=0.0):
+    """Card against CPU: quantiles and medians within 1e-2 (the card's
+    and the CPU's digest compaction round apart), set estimates within
+    1e-5, the rest exact; wall-clock stamps skipped."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            if k in ("ts", "ts_start"):
+                continue
+            t = {"quantiles": 1e-2, "median": 1e-2, "estimate": 1e-5}.get(
+                k, tol)
+            _close_answers(got[k], want[k], f"{where}.{k}", t)
+    elif isinstance(want, list):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_answers(g, w, f"{where}[{i}]", tol)
+    elif tol and isinstance(want, float):
+        assert abs(got - want) <= tol * abs(want) + 1e-6, (where, got, want)
+    else:
+        assert got == want, (where, got, want)
+
+
+def test_server_tiers_on_the_card_match_the_cpu(cuda):
+    """POST /query (instant and range, K2 and K3 on the Server's path)
+    and the watch tier on the card against the same Server on the CPU."""
+    rng = np.random.default_rng(9)
+    waves = []
+    for w in range(3):
+        lines = []
+        for i in range(3000):
+            k = i % 4
+            if k == 0:
+                lines.append(b"c.%d:%d|c" % (i % 300, 1 + (i + w) % 5))
+            elif k == 1:
+                lines.append(b"t.%d:%.4f|ms" % (int(rng.zipf(1.3)) % 100,
+                                                rng.lognormal(3.0, 0.5)))
+            elif k == 2:
+                lines.append(b"g.%d:%.3f|g" % (i % 100, rng.normal()))
+            else:
+                lines.append(b"s.%d:u%d|s" % (i % 40, rng.integers(0, 5000)))
+        waves.append([b"\n".join(lines[i:i + 40])
+                      for i in range(0, len(lines), 40)])
+    want, want_ev = _tiers_run("cpu", waves)
+    cuda_digest.launches = cuda_history.launches = 0
+    got, got_ev = _tiers_run(cuda, waves)
+    assert cuda_history.launches == 1 and cuda_digest.launches >= 10
+    _close_answers(got, want)
+    assert [(e["id"], e["from"], e["to"]) for e in got_ev] == \
+        [(e["id"], e["from"], e["to"]) for e in want_ev]
+    assert got_ev

@@ -20,8 +20,9 @@
   Python parser;
 - (e) the registry's veneur.* names, and the families /metrics exposes,
   are the JAX package's less veneur.jax.*;
-- (f) the HTTP routes answer with the JAX package's codes, and the routes
-  of tiers not ported yet answer 501 naming their ROADMAP item; with
+- (f) the HTTP routes answer with the JAX package's codes (the query and
+  watch routes with their tiers off included), and the routes of tiers
+  not ported yet answer 501 naming their ROADMAP item; with
   profile_capture_enabled, GET /debug/profile writes a torch.profiler
   trace;
 - (g) each config key outside the slice raises NotImplementedError
@@ -552,8 +553,9 @@ SAME_CODE_ROUTES = [("GET", p) for p in (
     "/version", "/builddate", "/stats", "/metrics", "/debug/pprof/threads",
     "/debug/pprof/profile?seconds=0.05", "/debug/pprof/profile?seconds=x",
     "/debug/profile?seconds=-1", "/debug/profilez", "/nope",
-    "/quitquitquit")] + [("POST", "/quitquitquit"), ("POST", "/nope"),
-                         ("DELETE", "/nope")]
+    "/quitquitquit", "/watch", "/watch/stream")] + [
+    ("POST", "/quitquitquit"), ("POST", "/nope"), ("DELETE", "/nope"),
+    ("POST", "/query"), ("POST", "/watch"), ("DELETE", "/watch/1")]
 
 
 def test_http_routes_answer_as_the_jax_server(servers):
@@ -587,7 +589,6 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 # -- (g), (h) what the slice refuses ---------------------------------------------
 
 REFUSED = {
-    "history_enabled": True, "query_enabled": True, "watch_enabled": True,
     "grpc_address": "127.0.0.1:0", "checkpoint_dir": "ckpt",
     "forward_address": "127.0.0.1:9", "forward_spill_max_bytes": 1,
     "forward_dedup_window": 8, "collective_enabled": True,

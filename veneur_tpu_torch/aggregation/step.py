@@ -538,6 +538,38 @@ def pad_bucket(n: int, cap: int) -> int:
     return min(p, max(cap, 1))
 
 
+def pack_query_inputs(spec: TableSpec, need, union_qs):
+    """Host: a query or watch batch's gather plan -> the flush program's
+    packed input buffer and static shape arguments (n_q, buckets, qcol).
+
+    The wire is `pack_flush_inputs`'s, shaped for ad-hoc reads: the
+    quantiles pad to the next power of two (min 4) and each kind's slot
+    list pads with `pad_bucket`, capped at FLUSH_BLOCK_ROWS as the tiled
+    flush caps its blocks, so a read runs the flush's own program and is
+    value-exact against the next flush. `need` is the (counter, gauge,
+    status, set, histo) slot lists; `union_qs` the batch's quantiles;
+    `qcol` maps a quantile to its column in the padded vector."""
+    caps = (spec.counter_capacity, spec.gauge_capacity,
+            spec.status_capacity, spec.set_capacity, spec.histo_capacity)
+    qs = sorted(union_qs) or [0.5]
+    n_q = 4
+    while n_q < len(qs):
+        n_q <<= 1
+    qcol = {v: i for i, v in enumerate(qs)}
+    qs_padded = qs + [0.5] * (n_q - len(qs))
+    buckets, idx_arrays = [], []
+    for slots, cap in zip(need, caps):
+        b = min(pad_bucket(len(slots), cap), FLUSH_BLOCK_ROWS)
+        if len(slots) > b:
+            raise ValueError("query gather exceeds one flush block")
+        arr = np.zeros(b, np.int32)
+        arr[:len(slots)] = slots
+        buckets.append(b)
+        idx_arrays.append(arr)
+    return (pack_flush_inputs(qs_padded, idx_arrays), n_q,
+            tuple(buckets), qcol)
+
+
 def combine_flush_scalars(result: dict) -> dict:
     """Host finish of the flush output: collapse each two-float pair in
     float64 (exact for the pair's ~48 significand bits) and derive

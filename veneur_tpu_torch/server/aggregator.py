@@ -221,6 +221,24 @@ class Aggregator:
         self._latch_degrade()
         return state, table
 
+    # -- query tier ----------------------------------------------------------
+    def query_snapshot(self):
+        """Pipeline-thread-only read view of the LIVE interval for the
+        query tier: swap()'s staging drain without the detach, so every
+        sample admitted before this call has its ingest step enqueued.
+        The state is the live one, which later steps update in place: a
+        read of it must be enqueued on this thread, on the stream the
+        steps use, before the next step (veneur_tpu_torch/query/).
+        Returns (state, table, active_set_shift): the live shift, whose
+        2^shift correction the flush has not applied yet."""
+        self.batcher.emit()
+        return self.state, self.table, self.active_set_shift
+
+    def query_flat_state(self, state):
+        """The state with flat [rows, ...] leading dims, as the query and
+        watch tiers gather from it; the single-device layout is one."""
+        return state
+
     def compute_flush(self, state, table, percentiles: List[float],
                       want_raw: bool = False, history=None):
         """Flush math on a detached interval. Output arrays are compact:

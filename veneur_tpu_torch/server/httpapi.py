@@ -6,12 +6,14 @@ Endpoints: GET /healthcheck, GET /healthz (liveness), GET /readyz
 prometheus_metrics_enabled), GET /debug/pprof/threads and
 /debug/pprof/profile (host stacks and a sampled host profile), GET
 /debug/profile?seconds=N (gated on profile_capture_enabled: a
-torch.profiler trace with CUDA activity), and POST/GET /quitquitquit
-(gated on http_quit, server.go:80).
+torch.profiler trace with CUDA activity), POST/GET /quitquitquit (gated
+on http_quit, server.go:80), POST /query (gated on query_enabled; range
+queries also on history_enabled), and, gated on watch_enabled, POST
+/watch, GET /watch, DELETE /watch/<id> and GET /watch/stream (SSE).
 
 Routes of tiers this package has not ported yet answer 501 and name the
-ROADMAP item that brings them (`NOT_PORTED_ROUTES`): POST /import, POST
-/query, POST /reshard, and the /watch family.
+ROADMAP item that brings them (`NOT_PORTED_ROUTES`): POST /import and
+POST /reshard.
 """
 
 from __future__ import annotations
@@ -29,24 +31,11 @@ log = logging.getLogger("veneur_tpu_torch.server.http")
 
 BUILD_DATE = "dev"
 
-# (method, path or path prefix ending in "/") -> the ROADMAP item that
-# ports the route's tier
+# (method, path) -> the ROADMAP item that ports the route's tier
 NOT_PORTED_ROUTES = {
     ("POST", "/import"): "A6",
-    ("POST", "/query"): "A5b",
     ("POST", "/reshard"): "A8",
-    ("POST", "/watch"): "A5b",
-    ("GET", "/watch"): "A5b",
-    ("GET", "/watch/stream"): "A5b",
-    ("DELETE", "/watch/"): "A5b",
 }
-
-
-def _not_ported_item(method: str, path: str):
-    item = NOT_PORTED_ROUTES.get((method, path))
-    if item is None and method == "DELETE" and path.startswith("/watch/"):
-        item = NOT_PORTED_ROUTES[("DELETE", "/watch/")]
-    return item
 
 
 def _thread_dump() -> bytes:
@@ -116,7 +105,8 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
 
         def _shutdown_gate(self) -> bool:
             """The ONE shutdown gate for every stateful endpoint
-            (/stats, /healthz, /readyz, /debug/profile): a tearing-down
+            (/stats, /healthz, /readyz, /query, /watch, /debug/profile):
+            a tearing-down
             server must answer 503, not hang — these handlers read
             aggregator/device state that shutdown is concurrently
             draining. Returns True when it replied."""
@@ -128,7 +118,7 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
         def _not_ported(self, method: str) -> bool:
             """501 for a route whose tier is not ported yet, naming the
             ROADMAP item that brings it. Returns True when it replied."""
-            item = _not_ported_item(method, self.path)
+            item = NOT_PORTED_ROUTES.get((method, self.path))
             if item is None:
                 return False
             length = int(self.headers.get("Content-Length", "0") or 0)
@@ -140,8 +130,6 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
             return True
 
         def do_GET(self):
-            if self._not_ported("GET"):
-                return
             if self.path == "/healthcheck":
                 self._reply(200, b"ok")
             elif self.path == "/healthz":
@@ -214,6 +202,10 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                             "text/plain")
             elif self.path.startswith("/debug/profile"):
                 self._debug_profile()
+            elif self.path == "/watch":
+                self._handle_watch_list()
+            elif self.path == "/watch/stream":
+                self._handle_watch_stream()
             elif self.path == "/quitquitquit" and server.cfg.http_quit:
                 self._quit()
             else:
@@ -256,14 +248,153 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
         def do_POST(self):
             if self._not_ported("POST"):
                 return
-            if self.path == "/quitquitquit" and server.cfg.http_quit:
+            if self.path == "/query":
+                self._handle_query()
+            elif self.path == "/watch":
+                self._handle_watch_register()
+            elif self.path == "/quitquitquit" and server.cfg.http_quit:
                 self._quit()
             else:
                 self._reply(404, b"not found")
 
         def do_DELETE(self):
-            if not self._not_ported("DELETE"):
+            if self.path.startswith("/watch/"):
+                self._handle_watch_delete()
+            else:
                 self._reply(404, b"not found")
+
+        def _json_body(self, route: str):
+            """The request's JSON body, or None after a 400 reply (empty
+            body or bad JSON)."""
+            length = int(self.headers.get("Content-Length", "0"))
+            body = self.rfile.read(length)
+            if not body.strip():
+                self._reply(400, f"Received empty {route} request".encode())
+                return None
+            try:
+                return json.loads(body)
+            except ValueError:
+                self._reply(400, b"bad JSON body")
+                return None
+
+        def _handle_query(self):
+            """Batched read API: answer quantile / cardinality / counter
+            reads from the resident device state, and range reads from
+            the history ring. Shutdown gate first, then the config gate
+            (an unaware deployment exposes nothing)."""
+            if self._shutdown_gate():
+                return
+            engine = server.query_engine
+            if engine is None:
+                self._reply(404, b"query_enabled is off")
+                return
+            req = self._json_body("/query")
+            if req is None:
+                return
+            from veneur_tpu_torch.query import QueryError
+            try:
+                out = engine.submit(req)
+            except QueryError as e:
+                self._reply(400, str(e).encode())
+                return
+            except (TimeoutError, RuntimeError) as e:
+                # batcher backlogged / pipeline wedged: tell the
+                # dashboard to back off (exact drop accounting)
+                server._c_query_shed.inc()
+                self._reply(503, str(e).encode())
+                return
+            self._reply(200, json.dumps(out).encode(), "application/json")
+
+        def _watch_gate(self):
+            """The gate chain of every /watch endpoint, /query's order:
+            shutdown gate first, then the config gate. Returns the
+            engine, or None when a reply was already sent."""
+            if self._shutdown_gate():
+                return None
+            engine = server.watch_engine
+            if engine is None:
+                self._reply(404, b"watch_enabled is off")
+                return None
+            return engine
+
+        def _handle_watch_register(self):
+            """POST /watch: register one standing monitor (a host-side
+            registry insert)."""
+            engine = self._watch_gate()
+            if engine is None:
+                return
+            req = self._json_body("/watch")
+            if req is None:
+                return
+            from veneur_tpu_torch.watch import WatchError, WatchLimitError
+            try:
+                out = engine.register(req)
+            except WatchLimitError as e:
+                self._reply(429, str(e).encode())
+                return
+            except WatchError as e:
+                self._reply(400, str(e).encode())
+                return
+            self._reply(201, json.dumps(out).encode(), "application/json")
+
+        def _handle_watch_list(self):
+            engine = self._watch_gate()
+            if engine is None:
+                return
+            watches = engine.list_watches()
+            self._reply(200, json.dumps(
+                {"watches": watches, "active": len(watches)}).encode(),
+                "application/json")
+
+        def _handle_watch_delete(self):
+            engine = self._watch_gate()
+            if engine is None:
+                return
+            try:
+                wid = int(self.path[len("/watch/"):])
+            except ValueError:
+                self._reply(400, b"want DELETE /watch/<integer id>")
+                return
+            if engine.delete(wid):
+                self._reply(200, json.dumps({"deleted": wid}).encode(),
+                            "application/json")
+            else:
+                self._reply(404, b"no such watch")
+
+        def _handle_watch_stream(self):
+            """GET /watch/stream: SSE tail of state transitions. One
+            bounded queue per subscriber (drop-oldest, drops counted);
+            503 at the subscriber cap and, through the shutdown gate,
+            during shutdown. The loop re-checks the shutdown flag each
+            second, so a draining server sheds open streams promptly."""
+            engine = self._watch_gate()
+            if engine is None:
+                return
+            sub = engine.hub.subscribe()
+            if sub is None:
+                self._reply(503, b"watch_stream_max_subscribers reached")
+                return
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.end_headers()
+                self.wfile.write(b": watch stream open\n\n")
+                self.wfile.flush()
+                while not server._shutdown.is_set():
+                    ev = sub.get(timeout=1.0)
+                    if ev is None:
+                        # keepalive comment: a dead client surfaces as
+                        # BrokenPipeError instead of a leaked thread
+                        self.wfile.write(b": keepalive\n\n")
+                    else:
+                        self.wfile.write(
+                            b"data: " + json.dumps(ev).encode() + b"\n\n")
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                pass   # the client went away; unsubscribe below
+            finally:
+                engine.hub.unsubscribe(sub)
 
         def _quit(self):
             self._reply(200, b"bye")

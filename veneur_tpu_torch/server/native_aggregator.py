@@ -405,3 +405,14 @@ class NativeAggregator(Aggregator):
         if rings:
             self.eng.rings_resume()
         return state, detached
+
+    def query_snapshot(self):
+        """Live snapshot: emit the engine's staged rows first, from the
+        single reader and from every ring. The rings are not paused:
+        nothing resets here, so a datagram parsed after this instant
+        lands after the snapshot (the ring path's analogue of the packet
+        queue's FIFO order)."""
+        if self.eng.n_rings:
+            self._emit_rings()
+        self._emit_native()
+        return super().query_snapshot()

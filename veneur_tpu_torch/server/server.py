@@ -16,10 +16,14 @@ Maps the reference's Server (server.go:83 struct, :771 Start, :1303 Serve):
 
 The device state lives on `device`: the card unless the caller names
 another. The pipeline thread launches the ingest kernel (through the
-aggregator's step) and the flush worker launches the digest kernel (in
-compute_flush); both use their thread's current CUDA stream, which is the
-default stream in each, so an interval's last ingest step is ordered
-before its flush on the card.
+aggregator's step) and the query tier's instant reads; the flush worker
+launches the digest kernel (in compute_flush) and, with the history tier,
+the ring write; the query batcher runs range reads over the ring and the
+watch engine evaluates detached intervals. Every thread uses its current
+CUDA stream, the default stream in each, so an interval's last ingest
+step is ordered before its flush, a query's read before the next step,
+and a range read enqueued under the ring's lock before the next ring
+write.
 
 Config keys of features this package has not ported yet raise
 NotImplementedError at construction, naming the ROADMAP item that brings
@@ -41,6 +45,7 @@ from typing import List, Optional
 from veneur_tpu_torch.aggregation.host import BatchSpec
 from veneur_tpu_torch.aggregation.state import TableSpec, resolve_device
 from veneur_tpu_torch.config import Config
+from veneur_tpu_torch.query.snapshot import PipelineRequest
 from veneur_tpu_torch.reliability.faults import FAULTS, FLUSH_WORKER
 from veneur_tpu_torch.reliability.policy import CircuitBreaker, RetryPolicy
 from veneur_tpu_torch.samplers import parser
@@ -56,9 +61,6 @@ MAX_UDP_SSF = 65536
 # Config keys whose feature is not ported yet: (key, is it set?, the
 # ROADMAP item that ports it). Each raises NotImplementedError in Server().
 NOT_PORTED = (
-    ("history_enabled", lambda c: c.history_enabled, "A5b"),
-    ("query_enabled", lambda c: c.query_enabled, "A5b"),
-    ("watch_enabled", lambda c: c.watch_enabled, "A5b"),
     ("grpc_address", lambda c: bool(c.grpc_address), "A6"),
     ("checkpoint_dir", lambda c: bool(c.checkpoint_dir), "A6"),
     ("forward_address", lambda c: bool(c.forward_address), "A6f"),
@@ -330,6 +332,54 @@ class Server:
         self._sockets: List[socket.socket] = []
         self._httpd = None
         self.http_port = None
+        # -- history tier (history/) ---------------------------------------
+        # Off by default: no ring on the device, flushes run the plain
+        # program. Server-scoped on purpose: the writer's key index
+        # outlives interval tables (windows are addressed by key
+        # identity, not by slot). The ring is allocated at the first flush.
+        self.history = None
+        if cfg.history_enabled:
+            from veneur_tpu_torch.history import HistorySpec, HistoryWriter
+            hspec = HistorySpec.for_table(
+                spec_from_config(cfg),
+                windows=cfg.history_windows,
+                tiers=cfg.history_decimation_tiers,
+                max_keys=cfg.history_max_keys)
+            self.history = HistoryWriter(
+                hspec, interval_s=self.interval, device=self.device,
+                c_writes=self._c_history_writes,
+                c_evictions=self._c_history_evictions,
+                c_range=self._c_history_range_queries,
+                g_hbm=self._g_history_hbm_bytes)
+        # -- query tier (query/) -------------------------------------------
+        # Off by default: no batcher thread, POST /query answers 404.
+        self.query_engine = None
+        if cfg.query_enabled:
+            from veneur_tpu_torch.query import QueryEngine
+            self.query_engine = QueryEngine(
+                self, max_batch=cfg.query_max_batch,
+                timeout_ms=cfg.query_timeout_ms,
+                requests=self._c_query_requests,
+                batched=self._c_query_batched,
+                duration=self._t_query,
+                history=self.history)
+        # -- watch tier (watch/) -------------------------------------------
+        # Off by default: no engine thread, the /watch routes answer 404.
+        self.watch_engine = None
+        if cfg.watch_enabled:
+            from veneur_tpu_torch.watch import WatchEngine
+            self.watch_engine = WatchEngine(
+                self, max_active=cfg.watch_max_active,
+                max_subscribers=cfg.watch_stream_max_subscribers,
+                webhook_url=cfg.watch_webhook_url,
+                retry_policy=self.retry_policy,
+                evaluated=self._c_watch_evaluated,
+                fired=self._c_watch_fired,
+                suppressed=self._c_watch_suppressed,
+                dropped=self._c_watch_notify_dropped,
+                eval_ns=self._c_watch_eval_ns,
+                active=self._g_watch_active,
+                history=self.history)
         # last: every attribute a collector closes over now exists
         self._register_collectors()
 
@@ -431,18 +481,22 @@ class Server:
         self._c_tcp_idle_closed = M.counter(
             "veneur.tcp.idle_closed_total",
             "TCP statsd connections closed at the idle deadline")
-        M.counter("veneur.query.requests_total",
-                  "individual queries accepted by POST /query (one request "
-                  "body may carry several)")
-        M.counter("veneur.query.batched_launches_total",
-                  "device launches the query batcher coalesced concurrent "
-                  "reads into")
-        M.counter("veneur.query.shed_total",
-                  "queries shed with 503: overload CRITICAL or shutdown "
-                  "(exact drop accounting — one inc per refused request)")
-        M.timer("veneur.query.duration_ns",
-                "end-to-end batched query service time: snapshot "
-                "round-trip + device launch + response assembly")
+        self._c_query_requests = M.counter(
+            "veneur.query.requests_total",
+            "individual queries accepted by POST /query (one request "
+            "body may carry several)")
+        self._c_query_batched = M.counter(
+            "veneur.query.batched_launches_total",
+            "device launches the query batcher coalesced concurrent "
+            "reads into")
+        self._c_query_shed = M.counter(
+            "veneur.query.shed_total",
+            "queries shed with 503: overload CRITICAL or shutdown "
+            "(exact drop accounting — one inc per refused request)")
+        self._t_query = M.timer(
+            "veneur.query.duration_ns",
+            "end-to-end batched query service time: snapshot "
+            "round-trip + device launch + response assembly")
         M.counter("veneur.reshard.moves_total",
                   "live mesh resizes completed (drain + transfer + cutover)")
         M.counter("veneur.reshard.rows_moved_total",
@@ -457,38 +511,48 @@ class Server:
                   "one flush interval)")
         M.timer("veneur.reshard.duration_ns",
                 "one live resize end to end: drain swap through final fold")
-        M.gauge("veneur.watch.active",
-                "standing watches currently registered, by watch kind",
-                labelnames=("kind",))
-        M.counter("veneur.watch.evaluated_total",
-                  "watch evaluations performed (one per active watch per "
-                  "evaluated interval)", labelnames=("kind",))
-        M.counter("veneur.watch.fired_total",
-                  "watch state transitions into ALERT", labelnames=("kind",))
-        M.counter("veneur.watch.suppressed_total",
-                  "breaches that did not transition (debounce pending or "
-                  "hysteresis hold) plus per-watch evaluations lost to a "
-                  "skipped interval (exact accounting)",
-                  labelnames=("kind",))
-        M.counter("veneur.watch.notify_dropped_total",
-                  "transition notifications lost: SSE subscriber queue "
-                  "drop-oldest + terminal webhook failures (one inc per "
-                  "lost event)", labelnames=("kind",))
-        M.counter("veneur.watch.eval_ns_total",
-                  "watch-engine-thread time per evaluated interval")
-        M.counter("veneur.history.writes_total",
-                  "per-key window values written into the history ring (one "
-                  "per live key per flushed interval)")
-        M.counter("veneur.history.evictions_total",
-                  "ring rows reclaimed from their least-recently-flushed "
-                  "key plus window writes turned away with every row in "
-                  "current use (the ring is a bounded cache)")
-        M.counter("veneur.history.range_queries_total",
-                  "range queries planned against the ring (each POST /query "
-                  "item carrying a range counts once)")
-        M.gauge("veneur.history.hbm_bytes",
-                "device-resident bytes of the history ring (0 while the "
-                "tier is off)")
+        self._g_watch_active = M.gauge(
+            "veneur.watch.active",
+            "standing watches currently registered, by watch kind",
+            labelnames=("kind",))
+        self._c_watch_evaluated = M.counter(
+            "veneur.watch.evaluated_total",
+            "watch evaluations performed (one per active watch per "
+            "evaluated interval)", labelnames=("kind",))
+        self._c_watch_fired = M.counter(
+            "veneur.watch.fired_total",
+            "watch state transitions into ALERT", labelnames=("kind",))
+        self._c_watch_suppressed = M.counter(
+            "veneur.watch.suppressed_total",
+            "breaches that did not transition (debounce pending or "
+            "hysteresis hold) plus per-watch evaluations lost to a "
+            "skipped interval (exact accounting)",
+            labelnames=("kind",))
+        self._c_watch_notify_dropped = M.counter(
+            "veneur.watch.notify_dropped_total",
+            "transition notifications lost: SSE subscriber queue "
+            "drop-oldest + terminal webhook failures (one inc per "
+            "lost event)", labelnames=("kind",))
+        self._c_watch_eval_ns = M.counter(
+            "veneur.watch.eval_ns_total",
+            "watch-engine-thread time per evaluated interval")
+        self._c_history_writes = M.counter(
+            "veneur.history.writes_total",
+            "per-key window values written into the history ring (one "
+            "per live key per flushed interval)")
+        self._c_history_evictions = M.counter(
+            "veneur.history.evictions_total",
+            "ring rows reclaimed from their least-recently-flushed "
+            "key plus window writes turned away with every row in "
+            "current use (the ring is a bounded cache)")
+        self._c_history_range_queries = M.counter(
+            "veneur.history.range_queries_total",
+            "range queries planned against the ring (each POST /query "
+            "item carrying a range counts once)")
+        self._g_history_hbm_bytes = M.gauge(
+            "veneur.history.hbm_bytes",
+            "device-resident bytes of the history ring (0 while the "
+            "tier is off)")
 
     def _register_collectors(self) -> None:
         """Read-through registry collectors for values owned elsewhere:
@@ -805,12 +869,18 @@ class Server:
             self._c_internal_errors.inc()
             log.exception("pipeline item failed (server continues); "
                           "item=%r", type(item).__name__)
-            if isinstance(item, FlushRequest):
+            if isinstance(item, (FlushRequest, PipelineRequest)):
                 item.finish(False, f"internal error: {e}")
 
     def _dispatch_item_inner(self, item):
         if isinstance(item, FlushRequest):
             self._handle_flush_request(item)
+        elif isinstance(item, PipelineRequest):
+            # query-tier snapshot/launch visits: the FIFO position in this
+            # queue is the read-your-writes boundary, and a launch
+            # enqueued here precedes any later in-place ingest step on
+            # this thread's stream (query/snapshot.py)
+            item.run(self.aggregator)
         elif isinstance(item, _SpanMetricBatch):
             for m in item:
                 self.aggregator.process_metric(m)
@@ -866,6 +936,7 @@ class Server:
             "span_chan_cap_hits": self.span_pipeline.chan_cap_hits,
             "intervals_deferred": self.flush_intervals_deferred,
             "sink_flushes_skipped": self.sink_flushes_skipped,
+            "set_shift": agg.last_set_shift,
         }
         self._flush_jobs.put_nowait((agg, state, table, stats, now, req))
 
@@ -1518,13 +1589,25 @@ class Server:
 
         dev_t0 = time.perf_counter_ns()
         sp = stage("device_update")
-        flush_arrays, table = agg.compute_flush(state, table,
-                                                self.cfg.percentiles)
+        flush_arrays, table = agg.compute_flush(
+            state, table, self.cfg.percentiles, history=self.history)
         self._t_flush_phase.observe(time.perf_counter_ns() - dev_t0,
                                     phase="device_update")
         if trace:
             sp.set_tag("h2d_bytes", str(h2d_delta))
         sp.client_finish(self.trace_client)
+        # watch tier: hand the DETACHED interval to the watch engine's own
+        # thread. swap() gave the pipeline a fresh state, so nothing
+        # writes this one again; offer() never blocks (bounded queue,
+        # drop-oldest with exact accounting), so watches cannot stretch
+        # the flush deadline. The interval's ring window seq is pinned
+        # now: a later flush advances the ring before the engine runs.
+        if self.watch_engine is not None:
+            hist_seq = (self.history.seq - 1
+                        if self.history is not None
+                        and self.history.armed else None)
+            self.watch_engine.offer(
+                state, table, int(stats.get("set_shift", 0)), ts, hist_seq)
 
         if self.cfg.count_unique_timeseries:
             from veneur_tpu_torch.server.flusher import unique_timeseries
@@ -1977,6 +2060,16 @@ class Server:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()  # release the listening fd
+        if self.query_engine is not None:
+            # before _STOP: the batcher thread enqueues snapshot/launch
+            # requests on packet_queue; one racing in behind _STOP would
+            # never run
+            self.query_engine.close()
+        if self.watch_engine is not None:
+            # the engine launches on the device from its own thread; it
+            # never touches packet_queue, so its order against _STOP is
+            # free (a flush offered after this is not evaluated)
+            self.watch_engine.close()
         self.packet_queue.put(_STOP)
         # drain order matters: the pipeline thread may still enqueue a final
         # flush job; only after it exits is it safe to stop the flush worker
