@@ -141,6 +141,46 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches of the phase, which the kernels line carries (K3's as its
    launches).
 
+11. (run last) the global tier, BASELINE config 4: 64 locals, each a
+   NativeAggregator `feed` of its own seeded interval (10,000 global
+   counters, a hundred of them byte counters whose sums pass 2^24; 1,000
+   global gauges; 2,000 timer names under Zipf(1.2) weights, 30k
+   samples; 256 set names over 100k uids, 20k members; names and tags
+   shared by every local) flushed with want_raw and exported to one
+   serialized MetricList each, built before the timer starts. A global
+   Server on the card at the default widths (native ingest, gRPC import,
+   checkpoint_dir, the watch, history and query tiers on a cut ring of
+   8 windows and 2^14 keys) takes the 64 lists through ForwardClient,
+   one SendMetrics a local, an instant read of one counter (it must read
+   the gRPC imports' exact sum), then a 65th local's interval as a
+   JSONMetric POST /import, then a flush. Gates: counters the exact f64
+   sum of the exports, gauges the last import, set words the register
+   max of the imported sketches and the estimates those words', histogram
+   count/min/max exact, import.metrics_total every metric sent with no
+   error, K1 on every import step and K2 in the flush, a counter watch
+   OK->ALERT at this flush, the checkpoint it writes passing `python -m
+   veneur_tpu_torch.cli.checkpoint verify`, and the 65th local's list
+   flushing the same over gRPC and as JSONMetrics. Then a range read
+   through POST /query, 16 more locals' interval imported and left
+   unflushed, and shutdown(), whose tail checkpoint a new card Server
+   restores (K1, counters in two steps: the f32 hi parts, then the lo
+   residuals) before its listeners start: the watch is still in ALERT,
+   the same range read over the restored ring answers the same points
+   (K3 launched, its words equal to its plain version's), and its flush
+   equals a card Server's that imported the 16 locals alone in counters,
+   gauges, set words and histogram count/min/max (quantiles: the gap is
+   reported, ROADMAP C-5). The checkpoint restored on the CPU flushes the
+   same within 2e-5, and the 65-local interval replayed on a CPU Server
+   gives the card's quantiles within rtol/atol 2e-5. K1 is held
+   byte-exact to its plain version on a CPU copy of the fifth import
+   step's state and streams (its longest runs reported), and K2 on the
+   flushes' own rows. Prints metrics/s and centroids/s through gRPC, the
+   import steps' ms, the flush's wall and phase ms, checkpoint write ms
+   and bytes, the restore fold's ms and steps, each timer key's p50/p99
+   error against the midpoint quantiles of the locals' raw samples
+   (reported, not held), and the phase's launches, which the kernels line
+   carries.
+
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
 """
@@ -403,12 +443,17 @@ def _ingest_case(state, batch, spec, device, clock_hz, plain_reps) -> dict:
     or histogram slot run) at 4 cycles a dependent add over the maximum
     SM clock; a chain is dependent operations, so bound_by names it
     "operations"."""
-    import torch
-    from veneur_tpu_torch import convert
     from veneur_tpu_torch.aggregation.step import build_streams
+    return _ingest_streams_case(state, build_streams(state, batch, spec),
+                                spec, device, clock_hz, plain_reps)
+
+
+def _ingest_streams_case(state, streams, spec, device, clock_hz,
+                         plain_reps) -> dict:
+    """`_ingest_case` on streams already built (captured from a step)."""
+    from veneur_tpu_torch import convert
     from veneur_tpu_torch.ops import cuda_ingest
 
-    streams = build_streams(state, batch, spec)
     cpu_state = convert.state_from_numpy(convert.state_to_numpy(state), "cpu")
     cpu_streams = cuda_ingest.IngestStreams(*(t.cpu() for t in streams))
     cuda_ingest.fused_ingest(state, streams, spec)
@@ -2491,6 +2536,625 @@ def server_tiers_path(device, frames, clock_hz) -> dict:
     return out
 
 
+# -- phase 11: the global tier ---------------------------------------------------
+
+# BASELINE config 4: 64 locals forward to one global. Each local's interval
+# (names and tags shared by every local, so each global key merges up to 65
+# imports): global counters and gauges, timers over Zipf(1.2) name weights,
+# and sets over 100k uids. The second interval, imported and then left
+# unflushed at shutdown, comes from GLOBAL_TAIL_LOCALS other locals.
+GLOBAL_LOCALS = 64
+GLOBAL_TAIL_LOCALS = 16
+GLOBAL_SHAPE = dict(counters=10_000, gauges=1_000, timers=2_000,
+                    timer_samples=30_000, sets=256, set_members=20_000,
+                    uids=100_000)
+
+
+def _global_interval(seed: int, shape: dict):
+    """One local's interval as DogStatsD lines, and its raw timer samples
+    (name index, value as the engine parses it) for the quantile oracle."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 50, shape["counters"])
+    # a hundred byte counters: their global sums pass 2^24, where only the
+    # two-float accumulators (and the restore's two-step split) are exact
+    counts[:100] = rng.integers(1 << 22, 1 << 23, 100)
+    out = [b"g.req.%d:%d|c|#veneurglobalonly,svc:api" % (i, v) for i, v in
+           enumerate(counts)]
+    out += [b"g.load.%d:%.4f|g|#veneurglobalonly" % (i, v) for i, v in
+            enumerate(rng.normal(size=shape["gauges"]))]
+    names = (rng.zipf(1.2, shape["timer_samples"]) - 1) % shape["timers"]
+    vals = rng.lognormal(3.0, 0.8, shape["timer_samples"])
+    text = [b"%.4f" % v for v in vals]
+    out += [b"g.lat.%d:%s|ms|#svc:api" % (n, t) for n, t in zip(names, text)]
+    sn = (rng.zipf(1.2, shape["set_members"]) - 1) % shape["sets"]
+    uid = rng.integers(0, shape["uids"], shape["set_members"])
+    out += [b"g.users.%d:u%d|s" % (n, u) for n, u in zip(sn, uid)]
+    return (b"\n".join(out), names,
+            np.asarray([float(t) for t in text], np.float32))
+
+
+def _global_locals(device, seeds, shape):
+    """Each seed's interval through one NativeAggregator (`feed`, then a
+    flush with want_raw) and the port's export_metrics: the serialized
+    MetricList a local forwards, and its raw timer samples."""
+    from veneur_tpu_torch.forward.convert import export_metrics
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    from veneur_tpu_torch.server.native_aggregator import NativeAggregator
+    spec = _default_spec()
+    loc = NativeAggregator(spec, device=device)
+    lists, samples = [], []
+    for s in seeds:
+        lines, names, vals = _global_interval(s, shape)
+        loc.feed(lines)
+        _res, table, raw = loc.flush([0.5], want_raw=True)
+        lists.append(fpb.MetricList(metrics=export_metrics(
+            raw, table, spec.compression, spec.hll_precision))
+            .SerializeToString())
+        samples.append((names, vals))
+    return lists, samples
+
+
+def _global_oracle(lists, precision: int) -> dict:
+    """What a global must flush for these MetricLists, from the exports
+    alone: counters their exact f64 sum, gauges the last value, sets the
+    element-wise register max of the imported sketches, histograms the
+    exact count, min and max of the imported digests."""
+    from veneur_tpu_torch.ops import hll
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    counters, gauges, sets, histos = {}, {}, {}, {}
+    n_metrics = n_centroids = 0
+    for data in lists:
+        for m in fpb.MetricList.FromString(data).metrics:
+            key = (m.name, ",".join(m.tags))
+            n_metrics += 1
+            which = m.WhichOneof("value")
+            if which == "counter":
+                counters[key] = counters.get(key, 0.0) + float(
+                    m.counter.value)
+            elif which == "gauge":
+                gauges[key] = float(np.float32(m.gauge.value))
+            elif which == "set":
+                p, regs = hll.deserialize(m.set.hyper_log_log)
+                _check(p == precision, f"set {key} at precision {p}")
+                sets[key] = (regs if key not in sets
+                             else np.maximum(sets[key], regs))
+            else:
+                td = m.histogram.t_digest
+                w = np.asarray([c.weight for c in td.main_centroids],
+                               np.float32)
+                n_centroids += len(w)
+                c, mn, mx = histos.get(key, (0.0, np.inf, -np.inf))
+                histos[key] = (c + float(w.astype(np.float64).sum()),
+                               min(mn, float(np.float32(td.min))),
+                               max(mx, float(np.float32(td.max))))
+    return dict(counter=counters, gauge=gauges, set=sets, histogram=histos,
+                metrics=n_metrics, centroids=n_centroids)
+
+
+def _global_server(device, **kw):
+    """The global: phase 9's Server config (native ingest, the default
+    widths) with the gRPC import listener; one checkpoint retained."""
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    sink = DebugMetricSink()
+    srv = Server(_server_config(profile_capture_enabled=False,
+                                grpc_address="127.0.0.1:0",
+                                checkpoint_retain=1, **kw),
+                 metric_sinks=[sink], device=device)
+    return srv, sink
+
+
+def _import(srv, lists, json_body=None) -> float:
+    """Each MetricList through the port's ForwardClient, one SendMetrics a
+    local, acknowledged in order, or `json_body` as a JSONMetric POST
+    /import; returns the seconds until the pipeline has folded them all
+    (the card finished too)."""
+    import torch
+    import urllib.request
+    from veneur_tpu_torch.forward.rpc import ForwardClient
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    n = sum(len(fpb.MetricList.FromString(d).metrics) for d in lists)
+    base = srv.imported_total + srv.import_errors
+    t0 = time.perf_counter()
+    client = ForwardClient(f"127.0.0.1:{srv.grpc_port}")
+    try:
+        for data in lists:
+            client.send_serialized(data, timeout=120)
+    finally:
+        client.close()
+    if json_body is not None:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.http_port}/import", data=json_body,
+            method="POST", headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            _check(r.status == 202, f"POST /import answered {r.status}")
+        n += len(json.loads(json_body))
+    while srv.imported_total + srv.import_errors - base < n:
+        _check(time.perf_counter() - t0 < 300,
+               f"{srv.imported_total - base} of {n} imports folded "
+               "after 300 s")
+        time.sleep(0.001)
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _flush_raw(srv, label: str) -> tuple:
+    """One manual flush: its wall ms, each flush phase's ms, and the
+    flush's own (res, table, raw) (raw None when no checkpoint was due)."""
+    agg = srv.aggregator
+    captured = []
+    orig = agg.compute_flush
+
+    def capture(state, table, percentiles, **kw):
+        out = orig(state, table, percentiles, **kw)
+        captured.append(out if len(out) == 3 else (*out, None))
+        return out
+    agg.compute_flush = capture
+    before = _phase_sums(srv)
+    t0 = time.perf_counter()
+    try:
+        _check(srv.trigger_flush(timeout=300), f"{label}: flush failed")
+    finally:
+        del agg.compute_flush
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    after = _phase_sums(srv)
+    _check(len(captured) == 1, f"{label}: {len(captured)} compute_flush calls")
+    return wall_ms, {k: (v - before.get(k, 0.0)) / 1e6
+                     for k, v in after.items()}, captured[0]
+
+
+def _global_rows(res, table, raw) -> dict:
+    """The flush's app rows by kind and (name, joined tags)."""
+    out = {k: {} for k in ("counter", "gauge", "set", "words", "histogram",
+                           "quantiles")}
+    for kind in ("counter", "gauge", "set", "histogram"):
+        for i, (_s, m) in enumerate(table.get_meta(kind)):
+            if m.name.startswith(("veneur.", "ssf.")):
+                continue
+            key = (m.name, ",".join(m.tags))
+            if kind == "counter":
+                out[kind][key] = float(res["counter"][i])
+            elif kind == "gauge":
+                out[kind][key] = float(res["gauge"][i])
+            elif kind == "set":
+                out[kind][key] = float(res["set_estimate"][i])
+                if raw is not None:
+                    out["words"][key] = np.asarray(raw["hll"][i])
+            else:
+                out[kind][key] = (float(res["histo_count"][i]),
+                                  float(res["histo_min"][i]),
+                                  float(res["histo_max"][i]))
+                out["quantiles"][key] = np.asarray(res["histo_quantiles"][i],
+                                                   np.float64)
+    return out
+
+
+def _check_global_flush(rows, oracle, device, precision, label) -> dict:
+    """Counters exact, gauges the last import, set words the registers'
+    max and the set estimates those words', histogram count/min/max
+    exact."""
+    import torch
+    from veneur_tpu_torch.ops import hll
+    for kind in ("counter", "gauge", "histogram"):
+        _check(rows[kind] == oracle[kind],
+               f"{label}: {kind}s differ from the exports' "
+               f"({len(rows[kind])} vs {len(oracle[kind])} keys)")
+    _check(sorted(rows["words"]) == sorted(oracle["set"]),
+           f"{label}: set keys differ from the exports'")
+    keys = sorted(oracle["set"])
+    words = np.stack([rows["words"][k] for k in keys])
+    want = hll.pack_registers_np(np.stack([oracle["set"][k] for k in keys]),
+                                 precision)
+    _check(np.array_equal(words, want), f"{label}: set words differ from "
+           "the imported sketches' register max")
+    est = hll.estimate_packed_rows(torch.from_numpy(words).to(device),
+                                   precision=precision).cpu().numpy()
+    _check([rows["set"][k] for k in keys] == [float(e) for e in est],
+           f"{label}: set estimates are not their words' estimates")
+    return dict(counters=len(rows["counter"]), gauges=len(rows["gauge"]),
+                sets=len(keys), histograms=len(rows["histogram"]))
+
+
+def _same_global_rows(got, want, q_tol, label, est_rtol=0.0):
+    """Two global flushes of the same imports: counters, gauges, set words
+    and histogram count/min/max equal, set estimates within `est_rtol`,
+    quantiles within rtol/atol `q_tol` (returns the worst gap); with
+    q_tol None the quantiles are measured, not held (`_quantile_gap`)."""
+    for kind in ("counter", "gauge", "histogram"):
+        _check(got[kind] == want[kind], f"{label}: {kind}s differ")
+    _check(sorted(got["words"]) == sorted(want["words"]) and all(
+        np.array_equal(got["words"][k], want["words"][k])
+        for k in want["words"]), f"{label}: set words differ")
+    _check(sorted(got["set"]) == sorted(want["set"]) and all(
+        abs(got["set"][k] - v) <= est_rtol * abs(v)
+        for k, v in want["set"].items()), f"{label}: set estimates differ")
+    if q_tol is None:
+        return _quantile_gap(got, want)
+    return _same_quantiles(got, want, q_tol, label)
+
+
+def _quantile_gap(got, want, tol: float = 1e-6) -> dict:
+    """How far two flushes' quantiles lie apart: the worst absolute and
+    relative gaps, and the keys with a quantile outside rtol/atol `tol`."""
+    _check(sorted(got["quantiles"]) == sorted(want["quantiles"]),
+           "histogram keys differ")
+    worst_abs = worst_rel = 0.0
+    outside = 0
+    for k, w in want["quantiles"].items():
+        g = got["quantiles"][k]
+        d = np.abs(g - w)
+        worst_abs = max(worst_abs, float(np.nanmax(d, initial=0.0)))
+        worst_rel = max(worst_rel, float(np.nanmax(
+            d / np.maximum(np.abs(w), 1e-30), initial=0.0)))
+        outside += int(not np.allclose(g, w, rtol=tol, atol=tol,
+                                       equal_nan=True))
+    return dict(keys=len(want["quantiles"]), outside_1e_6=outside,
+                worst_abs=worst_abs, worst_rel=worst_rel)
+
+
+def _same_quantiles(got, want, tol, label) -> float:
+    _check(sorted(got["quantiles"]) == sorted(want["quantiles"]),
+           f"{label}: histogram keys differ")
+    worst = 0.0
+    for k, w in want["quantiles"].items():
+        g = got["quantiles"][k]
+        _check(np.array_equal(np.isnan(g), np.isnan(w)) and np.allclose(
+            g, w, rtol=tol, atol=tol, equal_nan=True),
+            f"{label}: {k} quantiles {g} vs {w}")
+        d = np.abs(g - w)
+        worst = max(worst, float(np.nanmax(d, initial=0.0)))
+    return worst
+
+
+def _timer_errors(rows, samples, timers: int) -> dict:
+    """Each timer key's p50/p99 relative error against the midpoint
+    quantiles of the union of the locals' raw samples (reported, not
+    held: merged digests may miss)."""
+    names = np.concatenate([n for n, _v in samples])
+    vals = np.concatenate([v for _n, v in samples])
+    order = np.argsort(names, kind="stable")
+    names, vals = names[order], vals[order]
+    bounds = np.searchsorted(names, np.arange(timers + 1))
+    errs = {0.5: [], 0.99: []}
+    for t in range(timers):
+        v = vals[bounds[t]:bounds[t + 1]]
+        got = rows["quantiles"].get((f"g.lat.{t}", "svc:api"))
+        if len(v) < 24 or got is None:
+            continue
+        for qi, q in ((0, 0.5), (2, 0.99)):
+            want = float(midpoint_quantile_rows(v[None, :], q)[0])
+            errs[q].append(abs(got[qi] - want) / abs(want))
+    return {f"p{int(q * 100)}": dict(
+        keys=len(e), mean=float(np.mean(e)), p99=float(np.percentile(e, 99)),
+        max=float(np.max(e)), over_1pct=int(np.sum(np.asarray(e) > 0.01)))
+        for q, e in errs.items() if e}
+
+
+def _range_body(iv: float, n: int) -> dict:
+    """A range read over the last `n` intervals, one step each: counters,
+    set rows (K3) and timers (K2)."""
+    rng = dict(range=n * iv, step=iv)
+    return {"queries": [
+        dict(rng, prefix="g.req.12", kinds=["counter"]),
+        dict(rng, prefix="g.users.1", kinds=["set"]),
+        dict(rng, prefix="g.lat.1", kinds=["timer"], quantiles=PERCENTILES)]}
+
+
+def _points_by_key(out) -> dict:
+    return {(qi, m["name"], ",".join(m["tags"])): m["points"]
+            for qi, r in enumerate(out["results"]) for m in r["matches"]}
+
+
+def _watch_status(srv) -> str:
+    return json.loads(_http(srv.http_port, "/watch")[1])["watches"][0][
+        "status"]
+
+
+def _import_interval(srv, lists, json_body, counter_want) -> float:
+    """The global interval: the lists over gRPC (timed, returned), an
+    instant read of one counter (it must read the gRPC imports' sum; the
+    read also applies everything staged, so the JSONMetric batch after it
+    lands last, as a later local's does), then the JSONMetric POST."""
+    import_s = _import(srv, lists)
+    _c, got, _ms = _post_json(srv.http_port, "/query", {
+        "name": "g.req.0", "kinds": ["counter"]})
+    value = got["results"][0]["matches"][0]["value"]
+    _check(value == counter_want, f"global: instant g.req.0 read {value}, "
+           f"the gRPC imports sum to {counter_want}")
+    _import(srv, [], json_body)
+    return import_s
+
+
+def _cpu_replay(lists, json_body, counter_want) -> dict:
+    """The same imports through the same Server on the CPU, where the
+    plain versions run: the flush's app rows."""
+    import torch
+    srv, _sink = _global_server(torch.device("cpu"), query_enabled=True)
+    srv.start()
+    try:
+        _import_interval(srv, lists, json_body, counter_want)
+        _ms, _ph, flushed = _flush_raw(srv, "CPU replay")
+    finally:
+        srv.shutdown()
+    return _global_rows(*flushed)
+
+
+def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
+                     n_tail=GLOBAL_TAIL_LOCALS) -> dict:
+    """Phase 11: the global tier on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    from veneur_tpu_torch.forward.jsonmetric import to_json_metrics
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+
+    shape = shape or GLOBAL_SHAPE
+    spec = _default_spec()
+    p = spec.hll_precision
+    t0 = time.perf_counter()
+    lists, samples = _global_locals(device, range(1000, 1001 + n_locals),
+                                    shape)
+    json_list, lists = lists[-1], lists[:-1]
+    json_body = json.dumps(to_json_metrics(list(
+        fpb.MetricList.FromString(json_list).metrics))).encode()
+    tail, _tail_samples = _global_locals(
+        device, range(2000, 2000 + n_tail), shape)
+    oracle = _global_oracle(lists + [json_list], p)
+    grpc_sum = _global_oracle(lists, p)["counter"][("g.req.0", "svc:api")]
+    out = dict(locals=n_locals, tail_locals=n_tail,
+               locals_s=time.perf_counter() - t0,
+               list_bytes=int(np.mean([len(d) for d in lists])),
+               json_bytes=len(json_body), metrics=oracle["metrics"],
+               centroids=oracle["centroids"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    root = f"{tmp}/global"
+    tiers = dict(watch_enabled=True, history_enabled=True,
+                 query_enabled=True, history_windows=8,
+                 history_max_keys=1 << 14)
+    try:
+        # -- the 64-local interval on the card --------------------------------
+        srv, sink = _global_server(device, checkpoint_dir=root, **tiers)
+        srv.start()
+        try:
+            agg, iv = srv.aggregator, srv.interval
+            _c, reg, _ms = _post_json(srv.http_port, "/watch", {
+                "name": "g.req.0", "threshold": 0.5})
+            _check(_watch_status(srv) == "OK", "watch not OK at first")
+            k1_steps = {}
+            orig_k1 = cuda_ingest.fused_ingest
+
+            def k1(state, streams, sp):
+                # the first import step whose histogram stream has a run
+                # past a warp's 32 positions (the warp-walk path): its
+                # state and streams, copied. Looked for in the first 64
+                # steps only, each look a host wait
+                k1_steps["n"] = k1_steps.get("n", 0) + 1
+                if "case" not in k1_steps and k1_steps["n"] <= 64 \
+                        and _max_run(streams.h_slot) > 32:
+                    k1_steps["case"] = (type(state)(*(t.clone()
+                                                      for t in state)),
+                                        type(streams)(*(t.clone()
+                                                        for t in streams)))
+                    k1_steps["at"] = k1_steps["n"]
+                return orig_k1(state, streams, sp)
+            cuda_ingest.launches = cuda_digest.launches = 0
+            cuda_history.launches = 0
+            steps0, synced0 = agg.steps_total, (agg.step_ns,
+                                                agg.steps_synced)
+            # the Python Batcher's steps (the histo_stat lanes the engine's
+            # digests drain into, and the JSONMetric batch); the rest are
+            # the engine's packed steps
+            py_steps = [0]
+            orig_on_batch = agg.batcher.on_batch
+
+            def on_batch(batch):
+                py_steps[0] += 1
+                return orig_on_batch(batch)
+            agg.batcher.on_batch = on_batch
+            cuda_ingest.fused_ingest = k1
+            try:
+                import_s = _import_interval(srv, lists, json_body, grpc_sum)
+            finally:
+                cuda_ingest.fused_ingest = orig_k1
+                agg.batcher.on_batch = orig_on_batch
+            import_steps = agg.steps_total - steps0
+            k1_import = cuda_ingest.launches
+            _check(k1_import == import_steps > 0,
+                   f"global: K1 {k1_import} launches for {import_steps} "
+                   "import steps")
+            step_ns = agg.step_ns - synced0[0]
+            step_n = agg.steps_synced - synced0[1]
+            ckpt_t = srv._t_ckpt_write.snapshot(qs=())[0][1]
+            with digest_calls() as k2_calls:
+                wall, phases, flushed = _flush_raw(srv, "global flush")
+            launches = {"fused_ingest": cuda_ingest.launches,
+                        "digest_quantiles": cuda_digest.launches,
+                        "merge_windows": cuda_history.launches}
+            _check(launches["fused_ingest"] == agg.steps_total - steps0,
+                   "global: K1 launches != steps")
+            _check(launches["digest_quantiles"] >= 1,
+                   "global: K2 not launched by the flush")
+            _check(srv.imported_total == oracle["metrics"]
+                   and srv.import_errors == 0,
+                   f"global: imported {srv.imported_total} of "
+                   f"{oracle['metrics']}, {srv.import_errors} errors")
+            rows = _global_rows(*flushed)
+            out["flush_checked"] = _check_global_flush(rows, oracle, device,
+                                                       p, "global flush")
+            _check(srv._ckpt_writer.wait_idle(120.0),
+                   "global: checkpoint not written")
+            ckpt_t1 = srv._t_ckpt_write.snapshot(qs=())[0][1]
+            cli = subprocess.run(
+                [sys.executable, "-m", "veneur_tpu_torch.cli.checkpoint",
+                 "verify", root], capture_output=True, text=True, timeout=120)
+            _check(cli.returncode == 0, f"checkpoint verify: {cli.stdout}"
+                   f"{cli.stderr}")
+            t_w = time.perf_counter()
+            while _watch_status(srv) != "ALERT":
+                _check(time.perf_counter() - t_w < 60,
+                       "global: the watch did not go to ALERT")
+                time.sleep(0.01)
+            out.update(
+                import_s=import_s,
+                metrics_per_s=oracle["metrics"] / import_s,
+                centroids_per_s=oracle["centroids"] / import_s,
+                import_steps=import_steps, import_steps_python=py_steps[0],
+                k1_case_step=k1_steps.get("at"),
+                import_step_ms=import_s * 1e3 / max(import_steps, 1),
+                import_step_ms_synced=step_ns / max(step_n, 1) / 1e6,
+                flush_ms=wall, flush_phase_ms={k: v for k, v in
+                                               phases.items() if v},
+                checkpoint_write_ms=(ckpt_t1.sum - ckpt_t.sum)
+                / max(ckpt_t1.count - ckpt_t.count, 1) / 1e6,
+                checkpoint_bytes=srv._c_ckpt_bytes.value(),
+                verify_stdout=cli.stdout.strip().splitlines()[-1:],
+                launches=launches)
+            # the JSONMetric batch flushes what the same batch flushes
+            # over gRPC
+            _import(srv, [json_list])
+            _ms, _ph, via_grpc = _flush_raw(srv, "json batch over gRPC")
+            _import(srv, [], json_body)
+            _ms, _ph, via_json = _flush_raw(srv, "json batch over HTTP")
+            out["json_vs_grpc_worst"] = _same_global_rows(
+                _global_rows(*via_json), _global_rows(*via_grpc), 2e-5,
+                "JSON vs gRPC")
+            # the range read before shutdown, then the second interval,
+            # left unflushed: shutdown checkpoints it
+            _c, before, _ms = _post_json(srv.http_port, "/query",
+                                         _range_body(iv, 3))
+            _check(_watch_status(srv) == "ALERT", "global: watch left ALERT")
+            tail_s = _import(srv, tail)
+            _check(srv._ckpt_writer.wait_idle(120.0),
+                   "global: checkpoint not written")
+            writes = srv._c_ckpt_writes.value()
+        finally:
+            t_sd = time.perf_counter()
+            srv.shutdown()
+            out["shutdown_s"] = time.perf_counter() - t_sd
+        _check(srv._c_ckpt_writes.value() == writes + 1,
+               "global: shutdown wrote no tail checkpoint")
+        k1_case = k1_steps.get("case")
+        _check(k1_case is not None, "global: no import step in the first 64 "
+               "had a histogram run past 32")
+        del srv
+        torch.cuda.empty_cache()
+
+        # -- what the first Server would have flushed for the tail ----------
+        ref, _ = _global_server(device, checkpoint_dir=f"{tmp}/ref",
+                                checkpoint_on_shutdown=False)
+        ref.start()
+        try:
+            _import(ref, tail)
+            _ms, _ph, ref_flushed = _flush_raw(ref, "tail reference")
+        finally:
+            ref.shutdown()
+        want_tail = _global_rows(*ref_flushed)
+        del ref, ref_flushed
+        torch.cuda.empty_cache()
+
+        # -- restart: the tail restored on the card -------------------------
+        cpu_root = f"{tmp}/cpu_restore"
+        shutil.copytree(root, cpu_root)
+        srv2, _ = _global_server(device, checkpoint_dir=root,
+                                 restore_on_start=True,
+                                 checkpoint_on_shutdown=False, **tiers)
+        fold = {}
+        orig_restore = srv2._restore_from_checkpoint
+
+        def timed_restore():
+            t_r = time.perf_counter()
+            orig_restore()
+            torch.cuda.synchronize()
+            fold["ms"] = (time.perf_counter() - t_r) * 1e3
+        srv2._restore_from_checkpoint = timed_restore
+        cuda_ingest.launches = cuda_digest.launches = 0
+        cuda_history.launches = 0
+        srv2.start()
+        try:
+            agg2 = srv2.aggregator
+            restore_steps = agg2.steps_total
+            _check(srv2._c_ckpt_restores.value() == 1, "global: no restore")
+            _check(cuda_ingest.launches == restore_steps >= 2,
+                   f"global restore: K1 {cuda_ingest.launches} launches, "
+                   f"{restore_steps} steps")
+            restore_launches = {"fused_ingest": cuda_ingest.launches}
+            _check(_watch_status(srv2) == "ALERT",
+                   "global: the watch is not in ALERT after the restart")
+            with merge_calls() as k3_calls:
+                _c, after, _ms = _post_json(srv2.http_port, "/query",
+                                            _range_body(srv2.interval, 4))
+            _check(cuda_history.launches == 1 and len(k3_calls) == 1,
+                   f"global: the range read launched K3 "
+                   f"{cuda_history.launches} times")
+            (k3_rows, k3_sel), k3_kw, k3_out = k3_calls[0]
+            k3_set_rows = k3_rows if k3_kw.get("idx") is None else \
+                k3_rows.index_select(0, k3_kw["idx"].long())
+            _check(torch.equal(k3_out, cuda_history.merge_windows_packed_plain(
+                k3_set_rows, k3_sel, precision=k3_kw["precision"])),
+                "global: K3 differs from its plain version on the "
+                "restored ring")
+            pb, pa = _points_by_key(before), _points_by_key(after)
+            _check(sorted(pb) == sorted(pa) and len(pb) > 100,
+                   "global: the restored ring's range read matched other keys")
+            for key, pts in pb.items():
+                _check(pa[key][:3] == pts and len(pa[key]) == 4,
+                       f"global: range read {key} differs after the restart")
+            restore_launches["merge_windows"] = cuda_history.launches
+            with digest_calls() as k2_tail_calls:
+                _ms, _ph, restored = _flush_raw(srv2, "restored flush")
+            got_tail = _global_rows(*restored)
+            # exact but for the quantiles: a restore re-adds each digest's
+            # cells as weighted samples, which lands them in other cells
+            # than the imports' did (the JAX package's restore does the
+            # same, ROADMAP C-5), so their gap is measured, not held here;
+            # the CPU restore below holds the card's restore to 2e-5
+            out["restore_vs_import_gap"] = _same_global_rows(
+                got_tail, want_tail, None, "restored flush vs the tail")
+            restore_launches["digest_quantiles"] = cuda_digest.launches
+        finally:
+            srv2.shutdown()
+        del srv2, restored
+        torch.cuda.empty_cache()
+
+        # -- the card's checkpoint restored on the CPU ----------------------
+        cpu, _ = _global_server(torch.device("cpu"), checkpoint_dir=cpu_root,
+                                restore_on_start=True,
+                                checkpoint_on_shutdown=False)
+        cpu.start()
+        try:
+            _ms, _ph, cpu_flushed = _flush_raw(cpu, "CPU restore")
+        finally:
+            cpu.shutdown()
+        out["cpu_restore_worst"] = _same_global_rows(
+            _global_rows(*cpu_flushed), got_tail, 2e-5,
+            "CPU restore vs card restore", est_rtol=2e-5)
+        # -- the 64-local interval replayed on the CPU -----------------------
+        t_c = time.perf_counter()
+        out["cpu_replay_worst"] = _same_quantiles(
+            _cpu_replay(lists, json_body, grpc_sum), rows, 2e-5,
+            "CPU replay")
+        out["cpu_replay_s"] = time.perf_counter() - t_c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- K1 and K2 on the phase's own tensors --------------------------------
+    state, streams = k1_case
+    out["k1"] = _ingest_streams_case(state, streams, spec, device, clock_hz,
+                                     plain_reps=1)
+    del state, streams, k1_case
+    out["k2"] = _digest_case(device, k2_calls[0], clock_hz)
+    out["k2_tail"] = _digest_case(device, k2_tail_calls[0], clock_hz)
+    out["timer_error"] = _timer_errors(rows, samples, shape["timers"])
+    out.update(restore_ms=fold["ms"], restore_steps=restore_steps,
+               restore_launches=restore_launches,
+               launches_phase={k: out["launches"][k] + restore_launches[k]
+                               for k in restore_launches})
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 7: the wide widths ---------------------------------------------------
 
 def _compare_intermetrics(got, want, label):
@@ -2737,6 +3401,28 @@ def main() -> int:
            f"wide widths: launches {wide['launches']}, want {want} "
            "and digest_quantiles_wide >= 1")
 
+    # phase 11: the global tier (64 locals -> 1 global), its checkpoint
+    # and a restart
+    glob = global_tier_path(device, clock_hz)
+    print("global tier path:", json.dumps(glob))
+    gl = glob["launches_phase"]
+    print(f"global tier on {card}: {glob['metrics_per_s']:.0f} metrics/s, "
+          f"{glob['centroids_per_s']:.0f} centroids/s through gRPC "
+          f"({glob['metrics']} metrics, {glob['import_steps']} K1 steps of "
+          f"{glob['import_step_ms']:.2f} ms); flush "
+          f"{glob['flush_ms']:.1f} ms (device_update "
+          f"{glob['flush_phase_ms'].get('device_update', 0.0):.1f}, "
+          f"checkpoint_build "
+          f"{glob['flush_phase_ms'].get('checkpoint_build', 0.0):.1f}); "
+          f"checkpoint write {glob['checkpoint_write_ms']:.1f} ms, "
+          f"{glob['checkpoint_bytes']:.0f} bytes written; restore fold "
+          f"{glob['restore_ms']:.1f} ms in {glob['restore_steps']} K1 steps; "
+          f"launches K1 {gl['fused_ingest']}, K2 {gl['digest_quantiles']}, "
+          f"K3 {gl['merge_windows']}")
+    _check(all(v >= 1 for v in gl.values()),
+           f"global tier: a kernel was never launched {gl}")
+    torch.cuda.empty_cache()
+
     src = "veneur_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_ingest", route="cuda",
@@ -2747,10 +3433,14 @@ def main() -> int:
                  "4": main["launches"]["fused_ingest"],
                  "8_udp": nat["udp"]["launches"]["fused_ingest"],
                  "9": srv["launches"]["fused_ingest"],
-                 "10": tiers["launches"]["fused_ingest"]},
+                 "10": tiers["launches"]["fused_ingest"],
+                 "11": gl["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
-             bound_by=ingest["bound_by"], library_ms=None),
+             bound_by=ingest["bound_by"], library_ms=None,
+             import_step={k: glob["k1"][k] for k in (
+                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "max_run")}),
         dict(name="digest_quantiles", route="cuda",
              source=src + "digest_quantiles.cu",
              replaces="veneur_tpu/ops/pallas_digest.py:189",
@@ -2759,7 +3449,8 @@ def main() -> int:
                  "4": main["launches"]["digest_quantiles"],
                  "8_udp": nat["udp"]["launches"]["digest_quantiles"],
                  "9": srv["launches"]["digest_quantiles"],
-                 "10": tiers["launches"]["digest_quantiles"]},
+                 "10": tiers["launches"]["digest_quantiles"],
+                 "11": gl["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
@@ -2770,7 +3461,8 @@ def main() -> int:
              launches=tiers["launches"]["merge_windows"],
              launches_by_phase={
                  "6": hist["launches"]["merge_windows"],
-                 "10": tiers["launches"]["merge_windows"]},
+                 "10": tiers["launches"]["merge_windows"],
+                 "11": gl["merge_windows"]},
              max_abs_err=merge["max_abs_err"], ms=merge["ms"],
              plain_ms=merge["plain_ms"], bound_ms=merge["bound_ms"],
              bound_by=merge["bound_by"], library_ms=None),

@@ -33,7 +33,12 @@ machine has no JAX.)
   datagrams over loopback (the C++ engine's UDP readers), the same
   flushed InterMetrics; and with the history, query and watch tiers on,
   the same POST /query answers (instant, then range over three
-  intervals) and the same watch transitions.
+  intervals) and the same watch transitions;
+- the global tier on the card against the same Server on the CPU: the
+  same MetricLists over gRPC (the engine's vi_import, K1 steps) and a
+  JSONMetric POST /import flush the same InterMetrics, and the shutdown
+  checkpoint restores (K1's two steps) into a card Server and a CPU
+  Server that flush the same tail.
 """
 
 import time
@@ -867,3 +872,121 @@ def test_server_tiers_on_the_card_match_the_cpu(cuda):
     assert [(e["id"], e["from"], e["to"]) for e in got_ev] == \
         [(e["id"], e["from"], e["to"]) for e in want_ev]
     assert got_ev
+
+
+def _global_run(device, lists, body, tail, root):
+    """A global Server on `device`: `lists` over gRPC and `body` through
+    POST /import, a flush, then `tail` over gRPC and a shutdown that
+    checkpoints it under `root`; a second Server restores it and flushes.
+    Returns both flushes' app InterMetrics."""
+    import json
+    import urllib.request
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.forward.rpc import ForwardClient
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    kw = dict(interval="3600s", hostname="g", percentiles=[0.5, 0.99],
+              aggregates=["min", "max", "count"],
+              statsd_listen_addresses=[], http_address="127.0.0.1:0",
+              grpc_address="127.0.0.1:0", checkpoint_dir=str(root),
+              tpu_counter_capacity=1 << 12, tpu_gauge_capacity=256,
+              tpu_status_capacity=64, tpu_set_capacity=64,
+              tpu_histo_capacity=256)
+
+    def app(sink):
+        # not the self-metrics, nor the span-name uniqueness sets the
+        # extraction sink samples at 1% from the server's own spans
+        return sorted((m for m in sink.flushed
+                       if not m.name.startswith("veneur.")
+                       and m.name != "ssf.names_unique"),
+                      key=lambda m: (m.name, tuple(m.tags)))
+
+    def count(data):
+        return len(fpb.MetricList.FromString(data).metrics)
+
+    def wait(srv, n):
+        t0 = time.time()
+        while srv.imported_total + srv.import_errors < n:
+            assert time.time() - t0 < 60, "imports not all folded"
+            time.sleep(0.01)
+
+    out = []
+    sink = DebugMetricSink()
+    srv = Server(Config(**kw), metric_sinks=[sink], device=device)
+    srv.start()
+    try:
+        client = ForwardClient(f"127.0.0.1:{srv.grpc_port}")
+        for data in lists:
+            client.send_serialized(data)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.http_port}/import", data=body,
+            method="POST", headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 202
+        n = sum(map(count, lists)) + len(json.loads(body))
+        wait(srv, n)
+        assert srv.trigger_flush(timeout=120)
+        out.append(app(sink))
+        client.send_serialized(tail)
+        wait(srv, n + count(tail))
+        client.close()
+    finally:
+        srv.shutdown()
+    assert srv.import_errors == 0
+    sink = DebugMetricSink()
+    srv = Server(Config(**dict(kw, restore_on_start=True,
+                               checkpoint_on_shutdown=False)),
+                 metric_sinks=[sink], device=device)
+    srv.start()
+    try:
+        assert srv._c_ckpt_restores.value() == 1
+        assert srv.trigger_flush(timeout=120)
+        out.append(app(sink))
+    finally:
+        srv.shutdown()
+    return out
+
+
+def test_global_tier_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import json
+    from veneur_tpu_torch.forward.convert import export_metrics
+    from veneur_tpu_torch.forward.jsonmetric import to_json_metrics
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    lists = []
+    for seed in range(5):
+        rng = np.random.default_rng(seed)
+        lines = [b"gc.%d:%d|c|#veneurglobalonly" % (i, 1 + i % 7)
+                 for i in range(400)]
+        lines += [b"gg.%d:%.3f|g|#veneurglobalonly" % (i, rng.normal())
+                  for i in range(50)]
+        lines += [b"gt.%d:%.4f|ms" % (int(rng.zipf(1.3)) % 100,
+                                      rng.lognormal(3.0, 0.5))
+                  for _ in range(4000)]
+        lines += [b"gs.%d:u%d|s" % (i % 40, rng.integers(0, 5000))
+                  for i in range(2000)]
+        loc = NativeAggregator(SPEC, device="cpu")
+        loc.feed(b"\n".join(lines))
+        _res, table, raw = loc.flush([0.5], want_raw=True)
+        lists.append(fpb.MetricList(metrics=export_metrics(
+            raw, table, SPEC.compression, SPEC.hll_precision))
+            .SerializeToString())
+    body = json.dumps(to_json_metrics(list(
+        fpb.MetricList.FromString(lists[0]).metrics))).encode()
+    want = _global_run("cpu", lists[1:], body, lists[0], tmp_path / "c")
+    cuda_ingest.launches = cuda_digest.launches = 0
+    got = _global_run(cuda, lists[1:], body, lists[0], tmp_path / "g")
+    assert cuda_ingest.launches >= 4 and cuda_digest.launches >= 2
+    for g_ims, c_ims in zip(got, want):
+        assert [(m.name, m.tags, m.type) for m in g_ims] == \
+            [(m.name, m.tags, m.type) for m in c_ims]
+        assert len(g_ims) > 500
+        for g, c in zip(g_ims, c_ims):
+            if g.name.endswith("percentile"):
+                np.testing.assert_allclose(g.value, c.value, rtol=2e-5,
+                                           atol=2e-5, err_msg=g.name)
+            elif g.name.startswith("gs."):
+                np.testing.assert_allclose(g.value, c.value, rtol=1e-5,
+                                           err_msg=g.name)
+            else:
+                assert g.value == c.value, g.name

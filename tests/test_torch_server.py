@@ -555,7 +555,8 @@ SAME_CODE_ROUTES = [("GET", p) for p in (
     "/debug/profile?seconds=-1", "/debug/profilez", "/nope",
     "/quitquitquit", "/watch", "/watch/stream")] + [
     ("POST", "/quitquitquit"), ("POST", "/nope"), ("DELETE", "/nope"),
-    ("POST", "/query"), ("POST", "/watch"), ("DELETE", "/watch/1")]
+    ("POST", "/query"), ("POST", "/watch"), ("DELETE", "/watch/1"),
+    ("POST", "/import")]
 
 
 def test_http_routes_answer_as_the_jax_server(servers):
@@ -589,7 +590,6 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 # -- (g), (h) what the slice refuses ---------------------------------------------
 
 REFUSED = {
-    "grpc_address": "127.0.0.1:0", "checkpoint_dir": "ckpt",
     "forward_address": "127.0.0.1:9", "forward_spill_max_bytes": 1,
     "forward_dedup_window": 8, "collective_enabled": True,
     "collective_attach": "default", "tpu_n_shards": 2,

@@ -9,10 +9,9 @@ same way); one shard is the single-device case.
 
 The Batcher stages parsed samples into fixed-size numpy lanes and emits a
 padded Batch whenever a lane fills (padding rows carry slot == capacity).
-It stages no imported-digest scalar lanes (the global tier's import path
-is not ported), so its batches carry histo_stat_* = None; the native
-engine's packed buffer carries them at `BatchSpec.histo_stat`, as
-sentinels.
+Its histo_stat lanes carry imported digests' exact min/max/reciprocal
+sums (the global tier's import and checkpoint restore paths); padding
+rows there hold +inf/-inf/0, the identities of the lanes' operations.
 """
 
 from __future__ import annotations
@@ -167,7 +166,11 @@ class Batcher:
         self.h_slot = np.full(b.histo, spec.histo_capacity, np.int32)
         self.h_val = np.zeros(b.histo, np.float32)
         self.h_wt = np.zeros(b.histo, np.float32)
-        self.nc = self.ng = self.nst = self.ns = self.nh = 0
+        self.hs_slot = np.full(b.histo_stat, spec.histo_capacity, np.int32)
+        self.hs_min = np.full(b.histo_stat, np.inf, np.float32)
+        self.hs_max = np.full(b.histo_stat, -np.inf, np.float32)
+        self.hs_recip = np.zeros(b.histo_stat, np.float32)
+        self.nc = self.ng = self.nst = self.ns = self.nh = self.nhs = 0
 
     def add_counter(self, slot: int, value: float, rate: float):
         self.c_slot[self.nc] = slot
@@ -207,6 +210,18 @@ class Batcher:
         if self.nh >= self.bspec.histo:
             self.emit()
 
+    def add_histo_stats(self, slot: int, mn: float, mx: float,
+                        recip: float):
+        """An imported digest's exact min/max and the reciprocal-sum
+        correction its centroid re-add leaves over."""
+        self.hs_slot[self.nhs] = slot
+        self.hs_min[self.nhs] = mn
+        self.hs_max[self.nhs] = mx
+        self.hs_recip[self.nhs] = recip
+        self.nhs += 1
+        if self.nhs >= self.bspec.histo_stat:
+            self.emit()
+
     # -- bulk staging: slices, not per-sample Python calls -----------------
     def _bulk(self, dsts, srcs, n_attr: str, cap: int):
         n = len(srcs[0])
@@ -239,8 +254,14 @@ class Batcher:
         self._bulk((self.h_slot, self.h_val, self.h_wt),
                    (slots, vals, wts), "nh", self.bspec.histo)
 
+    def add_histo_stats_bulk(self, slots, mns, mxs, recips):
+        """add_histo_stats in slices (the native import decoder drains
+        these per request)."""
+        self._bulk((self.hs_slot, self.hs_min, self.hs_max, self.hs_recip),
+                   (slots, mns, mxs, recips), "nhs", self.bspec.histo_stat)
+
     def pending(self) -> int:
-        return self.nc + self.ng + self.nst + self.ns + self.nh
+        return self.nc + self.ng + self.nst + self.ns + self.nh + self.nhs
 
     def emit(self) -> Optional[Batch]:
         """Build a padded Batch from staged samples, reset staging, pass it
@@ -255,6 +276,10 @@ class Batcher:
             set_rho=self.s_rho.copy(),
             histo_slot=self.h_slot.copy(), histo_val=self.h_val.copy(),
             histo_wt=self.h_wt.copy(),
+            histo_stat_slot=self.hs_slot.copy(),
+            histo_stat_min=self.hs_min.copy(),
+            histo_stat_max=self.hs_max.copy(),
+            histo_stat_recip=self.hs_recip.copy(),
         )
         # reset padding sentinels for the next batch
         self.c_slot[:self.nc] = self.spec.counter_capacity
@@ -262,9 +287,13 @@ class Batcher:
         self.st_slot[:self.nst] = self.spec.status_capacity
         self.s_slot[:self.ns] = self.spec.set_capacity
         self.h_slot[:self.nh] = self.spec.histo_capacity
+        self.hs_slot[:self.nhs] = self.spec.histo_capacity
+        self.hs_min[:self.nhs] = np.inf
+        self.hs_max[:self.nhs] = -np.inf
+        self.hs_recip[:self.nhs] = 0.0
         self.c_inc[:self.nc] = 0.0
         self.h_wt[:self.nh] = 0.0
-        self.nc = self.ng = self.nst = self.ns = self.nh = 0
+        self.nc = self.ng = self.nst = self.ns = self.nh = self.nhs = 0
         if self.on_batch is not None:
             self.on_batch(batch)
         return batch

@@ -30,7 +30,10 @@ def _from_numpy(cls, d: dict, device):
 
 
 def _to_numpy(tensors) -> dict:
-    return {k: v.detach().cpu().numpy() for k, v in tensors._asdict().items()}
+    """Copies, never views: on the CPU a view would follow later in-place
+    updates (a checkpoint's ring would change under its async writer)."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            for k, v in tensors._asdict().items()}
 
 
 def state_from_numpy(d: dict, device) -> DeviceState:

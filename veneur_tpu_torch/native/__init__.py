@@ -112,6 +112,12 @@ def load() -> ctypes.CDLL:
         "vt_tenant_restore": (cint, [vp, ctypes.c_char_p, cint]),
         "vt_tenant_rows": (cint, [vp, i32p, u64p, cint]),
         "vrm_tenant_counters": (cint, [vp, cint, i32p, u64p, cint]),
+        "vi_import": (cint, [vp, ctypes.c_char_p, cint, cint,
+                             ctypes.POINTER(cint), i32p, i32p, cint,
+                             ctypes.POINTER(cint), ctypes.POINTER(cint)]),
+        "vi_stats": (cint, [vp, i32p, ctypes.POINTER(ctypes.c_float),
+                            ctypes.POINTER(ctypes.c_float),
+                            ctypes.POINTER(ctypes.c_float), cint]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -241,6 +247,53 @@ class NativeIngest:
             out.append((KIND_NAMES[kind], slot, scope, name, tags,
                         imported))
         return out
+
+    def import_metriclist(self, data: bytes, offset: int = 0):
+        """Decode and stage a serialized forwardrpc.MetricList from
+        `offset` (the whole buffer is passed without a copy; a re-entry
+        never re-slices the remainder). Returns (handled, consumed_abs,
+        fallback_spans, lane_full): consumed_abs is the absolute offset
+        fully handled (re-enter there after emitting when lane_full), and
+        fallback_spans the [(abs_off, length)] of Metric submessages for
+        the Python path."""
+        consumed = ctypes.c_int(0)
+        n_fb = ctypes.c_int(0)
+        full_stop = ctypes.c_int(0)
+        fb_cap = 1024
+        fb_off = (ctypes.c_int32 * fb_cap)()
+        fb_len = (ctypes.c_int32 * fb_cap)()
+        staged = self._lib.vi_import(
+            self._h, data, len(data), offset, ctypes.byref(consumed),
+            fb_off, fb_len, fb_cap, ctypes.byref(n_fb),
+            ctypes.byref(full_stop))
+        spans = [(fb_off[i], fb_len[i]) for i in range(n_fb.value)]
+        return staged, consumed.value, spans, bool(full_stop.value)
+
+    def drain_import_stats(self):
+        """(slots, mins, maxes, recip_corrs) numpy arrays of the
+        per-imported-histogram scalar stats import_metriclist staged."""
+        cap = 4096
+        slots = np.empty(cap, np.int32)
+        mns = np.empty(cap, np.float32)
+        mxs = np.empty(cap, np.float32)
+        rc = np.empty(cap, np.float32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        out = [[], [], [], []]
+        while True:
+            n = self._lib.vi_stats(
+                self._h, slots.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                mns.ctypes.data_as(f32p), mxs.ctypes.data_as(f32p),
+                rc.ctypes.data_as(f32p), cap)
+            if n <= 0:
+                break
+            for dst, src in zip(out, (slots, mns, mxs, rc)):
+                dst.append(src[:n].copy())
+            if n < cap:
+                break
+        if not out[0]:
+            z = np.empty(0, np.float32)
+            return np.empty(0, np.int32), z, z, z
+        return tuple(np.concatenate(x) for x in out)
 
     def drain_specials(self) -> List[bytes]:
         """Event/service-check lines the C++ parser escalated."""

@@ -178,6 +178,196 @@ def insert_batch_packed(words: torch.Tensor, slot, reg, rho, *,
     return out
 
 
+def merge_rows_packed_(words: torch.Tensor, slot, rows, *,
+                       precision: int = DEFAULT_PRECISION) -> None:
+    """In place: union dense u8[B, R] import rows into the packed table,
+    touching only the addressed rows (gather -> unpack -> max -> pack ->
+    store). Duplicate slots are combined by a segment max before the
+    store, so the store's indices are unique. Out-of-range slots,
+    negative ones included, are dropped."""
+    k = words.shape[0]
+    slot = torch.as_tensor(slot, device=words.device).to(torch.int64)
+    rows = torch.as_tensor(rows, device=words.device)
+    ok = (slot >= 0) & (slot < k)
+    s, r = slot[ok], rows[ok].to(torch.int32)
+    if s.numel() == 0:
+        return
+    tgt, inv = torch.unique(s, return_inverse=True)
+    comb = torch.zeros((tgt.numel(), r.shape[-1]), dtype=torch.int32,
+                       device=words.device)
+    comb.scatter_reduce_(0, inv[:, None].expand_as(r), r, "amax")
+    cur = unpack_registers(words[tgt], precision=precision).to(torch.int32)
+    words[tgt] = pack_registers(torch.maximum(cur, comb).to(torch.uint8),
+                                precision=precision)
+
+
+def merge_rows_packed(words: torch.Tensor, slot, rows, *,
+                      precision: int = DEFAULT_PRECISION) -> torch.Tensor:
+    """`merge_rows_packed_` on a copy; returns the new table."""
+    out = words.clone()
+    merge_rows_packed_(out, slot, rows, precision=precision)
+    return out
+
+
+MAGIC = b"VHLL"          # legacy round-1 wire format (still decodable)
+_SPARSE_PP = 25          # axiomhq sparse precision (hyperloglog.go pp)
+
+
+def serialize(registers, precision: int = DEFAULT_PRECISION) -> bytes:
+    """Wire bytes for one key's registers in the reference sketch's
+    MarshalBinary layout (axiomhq/hyperloglog hyperloglog.go:274): dense
+    form `[version=1][p][b][sparse=0][len(m/2) BE32][m/2 nibble-packed
+    bytes]`, register value = b + stored nibble, register 2i in the high
+    nibble of byte i. A reference global can UnmarshalBinary these bytes
+    directly, so forwarded set metrics merge across a mixed fleet.
+
+    Base selection mirrors the reference's rebase invariant (b only ever
+    grows to the register minimum): exact whenever the register spread fits
+    in a nibble, saturating at b+15 otherwise — the same tailcut loss the
+    reference's own insert applies (hyperloglog.go:169-180).
+    """
+    regs = np.asarray(registers)
+    if regs.dtype != np.uint8:           # 6-bit packed i32 row
+        regs = unpack_registers_np(regs, precision)
+    m = regs.shape[0]
+    mn, mx = int(regs.min()), int(regs.max())
+    b = 0
+    if mn > 0 and mx > 15:
+        b = min(mn, mx - 15)
+    stored = np.clip(regs.astype(np.int32) - b, 0, 15).astype(np.uint8)
+    packed = ((stored[0::2] << 4) | stored[1::2]).astype(np.uint8)
+    return (bytes([1, precision, b, 0]) + (m // 2).to_bytes(4, "big")
+            + packed.tobytes())
+
+
+def _decode_sparse_hash(k: int, p: int):
+    """axiomhq sparse.go decodeHash: sparse key -> (register, rho)."""
+    pp = _SPARSE_PP
+    if k & 1:
+        r = ((k >> 1) & 0x3F) + pp - p
+        idx = (k >> (32 - p)) & ((1 << p) - 1)
+    else:
+        shifted = (k << (32 - pp + p - 1)) & 0xFFFFFFFF
+        # clz32(shifted) + 1; shifted==0 cannot occur for a valid key
+        r = (33 - shifted.bit_length()) if shifted else 32
+        idx = (k >> (pp - p + 1)) & ((1 << p) - 1)
+    return idx, r
+
+
+def _bitlen32(x):
+    """Vectorized int.bit_length for non-negative int64 arrays < 2^32.
+    Binary-search halving — no float log2 (exact at every power of two)."""
+    x = x.astype(np.int64)
+    n = np.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        big = x >= (np.int64(1) << s)
+        n = np.where(big, n + s, n)
+        x = np.where(big, x >> s, x)
+    return n + (x > 0)
+
+
+def _decode_sparse_hashes_np(keys, p: int):
+    """Vectorized `_decode_sparse_hash` over an int64 key array — returns
+    (idx, r) int64 arrays. Same field math as the scalar version (the
+    sparse-form oracle test in tests/test_hll.py pins both)."""
+    pp = _SPARSE_PP
+    k = keys.astype(np.int64) & 0xFFFFFFFF
+    m = 1 << p
+    odd = (k & 1) == 1
+    r_odd = ((k >> 1) & 0x3F) + pp - p
+    idx_odd = (k >> (32 - p)) & (m - 1)
+    shifted = (k << (32 - pp + p - 1)) & 0xFFFFFFFF
+    r_even = np.where(shifted == 0, 32, 33 - _bitlen32(shifted))
+    idx_even = (k >> (pp - p + 1)) & (m - 1)
+    return (np.where(odd, idx_odd, idx_even),
+            np.where(odd, r_odd, r_even))
+
+
+def _decode_varint_deltas(buf: bytes):
+    """Vectorized LEB128 varint decode of axiomhq's compressedList delta
+    stream -> int64 delta array. Replaces the per-byte Python while loop
+   .
+
+    Grouping trick: a varint ends at each byte with the continuation bit
+    clear; `np.add.reduceat` over per-byte `7*pos`-shifted payloads at the
+    group starts reassembles every value in one pass."""
+    if not buf:
+        return np.zeros(0, np.int64)
+    b = np.frombuffer(buf, np.uint8).astype(np.int64)
+    is_end = (b & 0x80) == 0
+    if not is_end[-1]:
+        raise ValueError("truncated HLL sparse varint")
+    ends = np.nonzero(is_end)[0]
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    gid = np.cumsum(np.concatenate([[False], is_end[:-1]]).astype(np.int64))
+    pos = np.arange(b.shape[0]) - starts[gid]
+    if pos.max() * 7 >= 63:
+        raise ValueError("HLL sparse varint too long")
+    vals = (b & 0x7F) << (7 * pos)
+    return np.add.reduceat(vals, starts)
+
+
+def _deserialize_axiomhq(data: bytes):
+    p = data[1]
+    b = data[2]
+    m = 1 << p
+    if data[3] == 1:
+        # sparse form: tmpSet (BE32 count + BE32 keys) then compressedList
+        # (count, last, varint-delta list) — decode into dense registers,
+        # exactly the sketch's own toNormal() conversion
+        regs = np.zeros(m, np.uint8)
+        (tssz,) = _be32(data, 4)
+        if 8 + 4 * tssz + 12 > len(data):
+            raise ValueError("truncated HLL sparse payload (tmpSet)")
+        off = 8
+        ts_keys = np.frombuffer(data[off:off + 4 * tssz], ">u4") \
+            .astype(np.int64)
+        off += 4 * tssz
+        off += 8  # compressedList count + last (we re-derive from deltas)
+        (sz,) = _be32(data, off)
+        off += 4
+        if off + sz > len(data):
+            raise ValueError("truncated HLL sparse payload (list)")
+        deltas = _decode_varint_deltas(data[off:off + sz])
+        keys = np.concatenate([ts_keys, np.cumsum(deltas)])
+        if keys.shape[0]:
+            idx, r = _decode_sparse_hashes_np(keys, p)
+            acc = np.zeros(m, np.int64)
+            np.maximum.at(acc, idx, r)
+            regs = acc.astype(np.uint8)
+        return p, regs
+    (sz,) = _be32(data, 4)
+    packed = np.frombuffer(data[8:8 + sz], np.uint8)
+    if packed.shape[0] != m // 2:
+        raise ValueError("HLL dense payload length mismatch")
+    regs = np.empty(m, np.uint8)
+    regs[0::2] = packed >> 4
+    regs[1::2] = packed & 0x0F
+    if b:
+        regs = (regs.astype(np.int32) + b).astype(np.uint8)
+    return p, regs
+
+
+def _be32(data: bytes, off: int):
+    return (int.from_bytes(data[off:off + 4], "big"),)
+
+
+def deserialize(data: bytes):
+    """Parse sketch wire bytes -> (precision, uint8 registers[2^p]).
+
+    Accepts the reference's axiomhq MarshalBinary bytes (dense AND sparse
+    forms) and this framework's legacy VHLL dump."""
+    if data[:4] == MAGIC:
+        precision = data[4]
+        regs = np.frombuffer(data[5:], np.uint8)
+        if regs.shape[0] != (1 << precision):
+            raise ValueError("HLL payload length mismatch")
+        return precision, regs
+    if len(data) >= 8 and data[0] == 1 and 4 <= data[1] <= 18:
+        return _deserialize_axiomhq(data)
+    raise ValueError("unrecognized HLL payload")
+
+
 def estimate_packed_rows(words: torch.Tensor, *,
                          precision: int = DEFAULT_PRECISION) -> torch.Tensor:
     """Cardinality estimate f32[...] straight from packed rows [..., W]:

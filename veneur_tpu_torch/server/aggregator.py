@@ -7,6 +7,15 @@ buffer, copied to the device once and applied by the ingest step
 every `compact_every` steps. `swap` detaches the interval's state and key
 table and starts fresh ones; `compute_flush` turns a detached interval
 into per-key numpy values.
+
+The global tier's import path (`import_metric`) and checkpoint restore
+(`restore_metric` + `restore_flush`) stage through the same lanes as
+live samples: counters and gauges in their lanes, an imported digest's
+centroids as weighted samples in the histogram lane with its exact
+min/max/reciprocal sum in the histo_stat lanes, so every one of them is
+applied by the ingest step (K1 on the card). Imported HLL sketches are
+register-maxed into the packed table (ops/hll.py merge_rows_packed_),
+drained at `swap` and `query_snapshot`.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ from veneur_tpu_torch.utils.hashing import fnv1a_64, splitmix64
 # every _SYNC_EVERY-th ingest step waits for the card, so step_ns holds
 # synced step times while the other steps pay only their enqueue
 _SYNC_EVERY = 64
+
+# staged HLL import/restore rows merged into the packed table per call
+_HLL_MERGE_ROWS = 128
 
 
 def set_member_bytes(value) -> bytes:
@@ -95,6 +107,12 @@ class Aggregator:
         # two staging buffers per lane-size signature, used in turn: batch
         # N+1 packs into one while batch N's copy may still read the other
         self._pack_bufs: dict = {}
+        # staged HLL import/restore rows (slot, dense u8 registers)
+        self._hll_slots: list = []
+        self._hll_rows: list = []
+        # checkpoint-restore counter residuals (batcher, slot, lo), staged
+        # in a second ingest step by restore_flush
+        self._restore_residuals: list = []
         # degraded aggregation knobs (pushed by an overload controller);
         # the defaults are no-ops
         self.degraded_timer_rate = 1.0
@@ -175,6 +193,11 @@ class Aggregator:
         if slot is None:
             self.dropped_capacity += 1
             return
+        if kind in ("histogram", "timer"):
+            # a directly sampled histo is no longer import-only
+            mt = self.table.meta_for_slot(kind, slot)
+            if mt is not None and mt.imported_only:
+                mt.imported_only = False
         if kind == "counter":
             self.batcher.add_counter(slot, float(m.value), m.sample_rate)
         elif kind == "gauge":
@@ -199,6 +222,140 @@ class Aggregator:
                 self.batcher.add_histo(slot, float(m.value), rate)
         self.processed += 1
 
+    # -- import path (global tier) -------------------------------------------
+    def _stage_digest(self, b: Batcher, slot: int, payload: dict,
+                      restore: bool = False) -> None:
+        """Stage one digest's live centroids as weighted samples, and its
+        exact min/max/reciprocal sum in the stats lanes: the lane carries
+        the payload's reciprocal sum less what the centroid re-add adds.
+        An import of a digest with no live centroid carries its whole
+        reciprocal sum; a restored one carries none (the JAX package's
+        two rules)."""
+        means = np.asarray(payload["means"], np.float32)
+        weights = np.asarray(payload["weights"], np.float32)
+        live = weights > 0
+        means, weights = means[live], weights[live]
+        b.add_histos_bulk(np.full(len(means), slot, np.int32), means,
+                          weights)
+        mn = float(payload.get("min", np.inf))
+        mx = float(payload.get("max", -np.inf))
+        recip = payload.get("recip")
+        recip_corr = 0.0
+        if recip is not None and (len(means) or not restore) \
+                and np.all(means != 0.0):
+            recip_corr = float(recip) - float(np.sum(weights / means))
+        b.add_histo_stats(slot, mn, mx, recip_corr)
+
+    def _stage_hll(self, slot: int, regs) -> None:
+        """Stage dense u8 registers for the packed-table register max."""
+        regs = np.asarray(regs, np.uint8)
+        if regs.shape[0] != self.spec.registers:
+            # sketch registers do not interoperate across precisions
+            raise ValueError(
+                f"HLL has {regs.shape[0]} registers, table expects "
+                f"{self.spec.registers}")
+        self._hll_slots.append(slot)
+        self._hll_rows.append(regs)
+        if len(self._hll_slots) >= _HLL_MERGE_ROWS:
+            self._flush_hll_imports()
+
+    def import_metric(self, kind: str, name: str, tags: tuple, scope: int,
+                      digest: int, payload: dict) -> None:
+        """Merge one forwarded metric's sketch state (the reference's
+        Worker.ImportMetricGRPC). payload keys by kind: counter/gauge
+        'value'; set 'registers' (u8[R]); histogram/timer 'means',
+        'weights' (+ optional 'min', 'max', 'recip')."""
+        slot = self.table.slot_for(kind, name, tags, scope, digest,
+                                   imported=True)
+        if slot is None:
+            self.dropped_capacity += 1
+            return
+        if kind == "counter":
+            self.batcher.add_counter(slot, float(payload["value"]), 1.0)
+        elif kind == "gauge":
+            self.batcher.add_gauge(slot, float(payload["value"]))
+        elif kind == "set":
+            self._stage_hll(slot, payload["registers"])
+        elif kind in ("histogram", "timer"):
+            self._stage_digest(self.batcher, slot, payload)
+        self.processed += 1
+
+    # -- checkpoint restore (persistence/restore.py) -------------------------
+    def _restore_lane(self, kind: str, slot: int):
+        """(batcher, staging slot) for a restored key."""
+        return self.batcher, slot
+
+    def _restore_emit(self) -> None:
+        self.batcher.emit()
+
+    def restore_metric(self, kind: str, name: str, tags: tuple, scope: int,
+                       digest: int, payload: dict, hostname: str = "",
+                       message: str = "", imported_only: bool = False,
+                       joined_tags=None) -> None:
+        """Fold one checkpointed key back in through the merge lanes,
+        never by overwriting state: counter add, gauge/status last write,
+        HLL register max, digest centroid re-add, plus the host metadata
+        a snapshot keeps. Callers finish with restore_flush()."""
+        slot = self.table.slot_for(kind, name, tags, scope, digest,
+                                   hostname=hostname,
+                                   imported=imported_only,
+                                   joined_tags=joined_tags)
+        if slot is None:
+            self.dropped_capacity += 1
+            return
+        b, local = self._restore_lane(kind, slot)
+        if kind == "counter":
+            # two-float split: the lane is f32 and the checkpointed count
+            # an f64. hi is staged now and lo in restore_flush's second
+            # step: one step's scatter-add would round hi + lo to f32
+            # and lose exactly the bits the split carries
+            value = float(payload["value"])
+            hi = float(np.float32(value))
+            b.add_counter(local, hi, 1.0)
+            lo = value - hi
+            if lo != 0.0:
+                self._restore_residuals.append((b, local, lo))
+        elif kind == "gauge":
+            b.add_gauge(local, float(payload["value"]))
+        elif kind == "status":
+            b.add_status(local, float(payload["value"]))
+            mt = self.table.meta_for_slot("status", slot)
+            if mt is not None:
+                mt.message = message
+        elif kind == "set":
+            self._stage_hll(slot, payload["registers"])
+        elif kind in ("histogram", "timer"):
+            self._stage_digest(b, local, payload, restore=True)
+        self.processed += 1
+
+    def restore_flush(self) -> None:
+        """Apply a fold_snapshot pass: the staged batch (counter hi
+        parts) in one step, then the counter lo residuals in a second,
+        then the staged HLL rows."""
+        self._restore_emit()
+        if self._restore_residuals:
+            for b, local, lo in self._restore_residuals:
+                b.add_counter(local, lo, 1.0)
+            self._restore_residuals = []
+            self._restore_emit()
+        while self._hll_slots:
+            self._flush_hll_imports()
+
+    def _flush_hll_imports(self) -> None:
+        """Register-max up to _HLL_MERGE_ROWS staged rows into the live
+        packed table, in place."""
+        if not self._hll_slots:
+            return
+        from veneur_tpu_torch.ops.hll import merge_rows_packed_
+        n = min(len(self._hll_slots), _HLL_MERGE_ROWS)
+        slots = torch.from_numpy(np.asarray(self._hll_slots[:n], np.int64))
+        rows = torch.from_numpy(np.stack(self._hll_rows[:n]))
+        merge_rows_packed_(self.state.hll, slots.to(self.device),
+                           rows.to(self.device),
+                           precision=self.spec.hll_precision)
+        self._hll_slots = self._hll_slots[n:]
+        self._hll_rows = self._hll_rows[n:]
+
     def extra_parse_errors(self) -> int:
         """Parse errors counted below the Python layer: none here, where
         the server's Python parser counts every line it refuses (the
@@ -209,6 +366,8 @@ class Aggregator:
     def swap(self):
         """Detach the live state and key table and start fresh ones."""
         self.batcher.emit()
+        while self._hll_slots:
+            self._flush_hll_imports()
         if self._steps:
             # interval boundary: step_ns is never 0 after an interval
             # that ingested, even when no sampled step fell in it
@@ -232,6 +391,8 @@ class Aggregator:
         Returns (state, table, active_set_shift): the live shift, whose
         2^shift correction the flush has not applied yet."""
         self.batcher.emit()
+        while self._hll_slots:
+            self._flush_hll_imports()
         return self.state, self.table, self.active_set_shift
 
     def query_flat_state(self, state):

@@ -7,13 +7,14 @@ prometheus_metrics_enabled), GET /debug/pprof/threads and
 /debug/pprof/profile (host stacks and a sampled host profile), GET
 /debug/profile?seconds=N (gated on profile_capture_enabled: a
 torch.profiler trace with CUDA activity), POST/GET /quitquitquit (gated
-on http_quit, server.go:80), POST /query (gated on query_enabled; range
+on http_quit, server.go:80), POST /import (the global tier's import:
+JSONMetric arrays or a protobuf MetricList, optionally deflated), POST
+/query (gated on query_enabled; range
 queries also on history_enabled), and, gated on watch_enabled, POST
 /watch, GET /watch, DELETE /watch/<id> and GET /watch/stream (SSE).
 
 Routes of tiers this package has not ported yet answer 501 and name the
-ROADMAP item that brings them (`NOT_PORTED_ROUTES`): POST /import and
-POST /reshard.
+ROADMAP item that brings them (`NOT_PORTED_ROUTES`): POST /reshard.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import json
 import logging
 import math
 import threading
+import zlib
 from urllib.parse import parse_qs, urlparse
 
 from veneur_tpu_torch import __version__ as VERSION
@@ -33,7 +35,6 @@ BUILD_DATE = "dev"
 
 # (method, path) -> the ROADMAP item that ports the route's tier
 NOT_PORTED_ROUTES = {
-    ("POST", "/import"): "A6",
     ("POST", "/reshard"): "A8",
 }
 
@@ -248,7 +249,23 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
         def do_POST(self):
             if self._not_ported("POST"):
                 return
-            if self.path == "/query":
+            if self.path == "/import":
+                # continue the forwarder's trace as a child span
+                # (handlers_global.go:126 ExtractRequestChild; a fresh
+                # span when no trace headers arrive)
+                from veneur_tpu_torch.trace.opentracing import GLOBAL_TRACER
+                from veneur_tpu_torch.trace.tracer import Span
+                req_span = GLOBAL_TRACER.extract_request_child(
+                    "/import", dict(self.headers.items()),
+                    "veneur.opentracing.import")
+                if req_span is None:
+                    req_span = Span("veneur.opentracing.import",
+                                    service="veneur")
+                try:
+                    self._handle_import()
+                finally:
+                    req_span.client_finish(server.trace_client)
+            elif self.path == "/query":
                 self._handle_query()
             elif self.path == "/watch":
                 self._handle_watch_register()
@@ -395,6 +412,142 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                 pass   # the client went away; unsubscribe below
             finally:
                 engine.hub.unsubscribe(sub)
+
+        def _import_error(self, cause: str) -> None:
+            """README §Monitoring: veneur.import.request_error_total
+            with the reference's cause tags (handlers_global.go:96,146,
+            154,163), through the self-telemetry loop."""
+            from veneur_tpu_torch.samplers import ssf_samples
+            from veneur_tpu_torch.trace.client import report_one
+            report_one(server.trace_client, ssf_samples.count(
+                "veneur.import.request_error_total", 1, {"cause": cause}))
+
+        def _import_timing(self, t0_ns: int, part: str) -> None:
+            """veneur.import.response_duration_ns tagged part:request/
+            merge (handlers_global.go:190, http.go:78)."""
+            import time as _time
+
+            from veneur_tpu_torch.samplers import ssf_samples
+            from veneur_tpu_torch.trace.client import report_one
+            report_one(server.trace_client, ssf_samples.timing(
+                "veneur.import.response_duration_ns",
+                (_time.perf_counter_ns() - t0_ns) / 1e9, {"part": part}))
+
+        def _handle_import(self):
+            import time as _time
+            self._import_t0 = _time.perf_counter_ns()
+            length = int(self.headers.get("Content-Length", "0"))
+            body = self.rfile.read(length)
+            encoding = self.headers.get("Content-Encoding", "")
+            if encoding == "deflate":
+                try:
+                    body = zlib.decompress(body)
+                except zlib.error:
+                    self._import_error("deflate")
+                    self._reply(400, b"bad deflate body")
+                    return
+            elif encoding not in ("", "identity"):
+                # reference: unknown encodings are 415
+                # (handlers_global.go:150-156)
+                self._import_error("unknown_content_encoding")
+                self._reply(415, encoding.encode())
+                return
+            if not body.strip():
+                self._reply(400, b"Received empty /import request")
+                return
+            # route on the declared Content-Type; fall back to a body
+            # sniff (json.NewDecoder skips leading whitespace,
+            # handlers_global.go:160 — and a protobuf body can
+            # legitimately begin 0x0a 0x5b, which lstrip+'[' would
+            # misread as JSON)
+            ctype = self.headers.get("Content-Type", "")
+            if "json" in ctype:
+                self._import_json(body)
+            elif "protobuf" in ctype:
+                self._import_protobuf(body)
+            elif body.lstrip()[:1] == b"[":
+                self._import_json(body)
+            else:
+                self._import_protobuf(body)
+
+        def _extract_envelope(self, body_env=None):
+            """Exactly-once envelope for this import: the wrapped-body
+            form wins, else the veneur-source-id/-epoch/-seq headers;
+            None when neither is present (legacy sender). Raises
+            EnvelopeError on a partial or malformed envelope."""
+            from veneur_tpu_torch.forward.envelope import Envelope
+            if body_env is not None:
+                return Envelope.from_json(body_env)
+            return Envelope.from_mapping(self.headers)
+
+        def _reject_envelope(self, e) -> None:
+            # every rejection is accounted
+            server._c_envelope_rejected.inc()
+            self._import_error("envelope")
+            self._reply(400, str(e).encode())
+
+        def _import_json(self, body: bytes) -> None:
+            """Reference JSONMetric array (handlers_global.go:115), or
+            the exactly-once wrapped form {"envelope": {...},
+            "metrics": [...]} the enveloped proxy/forward path POSTs."""
+            from veneur_tpu_torch.forward.envelope import EnvelopeError
+            from veneur_tpu_torch.forward.jsonmetric import from_json_metric
+            try:
+                jms = json.loads(body)
+            except ValueError:
+                self._import_error("json")
+                self._reply(400, b"bad JSON body")
+                return
+            body_env = None
+            if isinstance(jms, dict):
+                body_env = jms.get("envelope")
+                jms = jms.get("metrics")
+            try:
+                envelope = self._extract_envelope(body_env)
+            except EnvelopeError as e:
+                self._reject_envelope(e)
+                return
+            if not isinstance(jms, list) or not jms:
+                self._reply(400, b"Received empty /import request")
+                return
+            metrics = []
+            for jm in jms:
+                try:
+                    metrics.append(from_json_metric(jm))
+                except Exception as e:
+                    # registry counter: atomic under concurrent HTTP
+                    # import threads (import_errors is a read-only view)
+                    server._c_import_errors.inc()
+                    log.warning("bad JSONMetric %s: %s",
+                                jm.get("name") if isinstance(jm, dict)
+                                else jm, e)
+            if not metrics:
+                # all-empty/improper: the reference 400s
+                # (handlers_global.go:176-186 nonEmpty)
+                self._reply(400, b"Received empty or improperly-formed "
+                                 b"metrics")
+                return
+            server.import_metrics(metrics, envelope=envelope)
+            self._import_timing(self._import_t0, "request")
+            self._reply(202, b"imported")
+
+        def _import_protobuf(self, body: bytes) -> None:
+            from veneur_tpu_torch.forward.envelope import EnvelopeError
+            from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+            try:
+                envelope = self._extract_envelope()
+            except EnvelopeError as e:
+                self._reject_envelope(e)
+                return
+            try:
+                mlist = fpb.MetricList.FromString(body)
+            except Exception:
+                self._import_error("protobuf")
+                self._reply(400, b"bad MetricList protobuf")
+                return
+            server.import_metrics(list(mlist.metrics), envelope=envelope)
+            self._import_timing(self._import_t0, "request")
+            self._reply(202, b"imported")
 
         def _quit(self):
             self._reply(200, b"bye")

@@ -23,10 +23,25 @@ Documented deviations, as in the JAX package's native backend:
 - An empty tag section (`|#`) and no section both join to "" in the C++
   key record, so such a key's label has no tags where the Python path
   would keep [""] when the empty section arrived first.
+- A histo slot first created by the import path and later hit by wire
+  samples keeps imported_only=True for the interval (the engine does not
+  report which slots the wire hit), so a global tier flushes only its
+  percentiles.
+- A corrupt MetricList tail is a partial apply: import_pb_bytes stages
+  incrementally, so the metrics decoded before the undecodable boundary
+  are merged when the tail is dropped and counted, where the Python
+  path's whole-request deserialize rejects all of them.
+
+The global tier's gRPC import decodes serialized MetricLists in the
+engine (`import_pb_bytes`, the engine's vi_import): counters, gauges and
+digest centroids stage natively, the digests' exact min/max/reciprocal
+sums drain into the Python Batcher's stats lanes, and sets, valueless
+metrics and oneof/type mismatches take the Python `import_into` path.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import List
 
@@ -40,6 +55,8 @@ from veneur_tpu_torch.aggregation.step import (packed_layout,
                                                packed_step_core)
 from veneur_tpu_torch.native import NativeIngest
 from veneur_tpu_torch.server.aggregator import Aggregator, _PackBuffer
+
+log = logging.getLogger("veneur_tpu_torch.server.native_aggregator")
 
 # the ten lanes the C++ engine stages, in vt_emit_packed's argument order;
 # the status and histo_stat lanes between them stay Python-owned
@@ -250,6 +267,52 @@ class NativeAggregator(Aggregator):
 
     def extra_parse_errors(self) -> int:
         return self.eng.stats()["parse_errors"]
+
+    # -- native import path (global tier) ------------------------------------
+    def import_pb_bytes(self, data: bytes):
+        """Decode and stage a serialized forwardrpc.MetricList with the
+        engine (the reference's importsrv SendMetrics). Counters, gauges
+        and digests stage natively; sets, valueless metrics and oneof/type
+        mismatches fall back to the Python import_into path, so error
+        accounting follows the reference's per-metric rules. Returns
+        (metrics, errors)."""
+        from veneur_tpu_torch.forward.convert import import_into
+        from veneur_tpu_torch.proto import metricpb_pb2 as mpb
+        total = 0
+        errors = 0
+        off = 0
+        while off < len(data):
+            staged, new_off, spans, lane_full = \
+                self.eng.import_metriclist(data, off)
+            total += staged + len(spans)
+            for so, sl in spans:
+                try:
+                    import_into(self, mpb.Metric.FromString(
+                        data[so:so + sl]))
+                except Exception as e:
+                    errors += 1
+                    log.warning("bad imported metric (native path): %s", e)
+            if new_off >= len(data):
+                break
+            if not lane_full and new_off == off and staged == 0 \
+                    and not spans:
+                # undecodable at a top-level boundary, not a lane stop:
+                # count one error and drop the rest (the Python
+                # deserializer would reject the whole request)
+                errors += 1
+                log.warning("undecodable MetricList tail at offset %d "
+                            "(%d bytes dropped)", off, len(data) - off)
+                break
+            # staging (or the fallback span buffer) filled: free the
+            # lanes, then re-enter at the reported boundary
+            self._emit_native()
+            off = new_off
+        # the digests' exact min/max/recip ride the Python stats lanes;
+        # min, max and the add do not depend on the centroids' steps
+        slots, mns, mxs, rcs = self.eng.drain_import_stats()
+        if len(slots):
+            self.batcher.add_histo_stats_bulk(slots, mns, mxs, rcs)
+        return total, errors
 
     # -- native UDP reader group ---------------------------------------------
     def readers_start(self, fds, max_len: int = 65536,

@@ -13,6 +13,15 @@ Maps the reference's Server (server.go:83 struct, :771 Start, :1303 Serve):
   (server.go:853-890, :900-935).
 - Sinks flushed in parallel threads with a WaitGroup-equivalent barrier,
   then plugins (flusher.go:105-131).
+- The global tier's import: a gRPC Forward service (`grpc_address`) and
+  POST /import hand MetricLists to the pipeline thread, which stages them
+  through the aggregator's import lanes (the native engine decodes the
+  gRPC bytes itself).
+- Durability (`checkpoint_dir`): a due flush also gathers the live rows'
+  raw sketch state and hands a snapshot to the async CheckpointWriter;
+  `restore_on_start` folds the newest valid checkpoint (this package's or
+  the JAX package's) through the same merge lanes before any listener
+  starts, and shutdown writes the unflushed tail.
 
 The device state lives on `device`: the card unless the caller names
 another. The pipeline thread launches the ingest kernel (through the
@@ -61,8 +70,6 @@ MAX_UDP_SSF = 65536
 # Config keys whose feature is not ported yet: (key, is it set?, the
 # ROADMAP item that ports it). Each raises NotImplementedError in Server().
 NOT_PORTED = (
-    ("grpc_address", lambda c: bool(c.grpc_address), "A6"),
-    ("checkpoint_dir", lambda c: bool(c.checkpoint_dir), "A6"),
     ("forward_address", lambda c: bool(c.forward_address), "A6f"),
     ("forward_spill_max_bytes", lambda c: c.forward_spill_max_bytes > 0,
      "A6f"),
@@ -114,6 +121,17 @@ class FlushRequest:
             self.detail = f"timed out after {timeout:.0f}s"
             return False
         return self.ok
+
+
+class _ImportBatch(list):
+    """Queue item carrying forwarded metricpb.Metrics into the pipeline
+    thread (the ImportMetricChan of reference worker.go:55)."""
+
+
+class _ImportBytes(bytes):
+    """Queue item carrying a raw serialized forwardrpc.MetricList for the
+    native import decoder (NativeAggregator.import_pb_bytes): the gRPC
+    thread never pays Python protobuf deserialization."""
 
 
 class _SpanMetricBatch(list):
@@ -330,8 +348,25 @@ class Server:
         self._aux_threads: List[threading.Thread] = []
         self._aux_lock = threading.Lock()
         self._sockets: List[socket.socket] = []
+        self._grpc_server = None
+        self.grpc_port = None
         self._httpd = None
         self.http_port = None
+        # -- durability layer (persistence/) --------------------------------
+        # Off by default (empty checkpoint_dir): no writer thread, no
+        # extra work anywhere in the flush path. /readyz waits for a
+        # configured restore.
+        self._ckpt_writer = None
+        self._flushes_since_ckpt = 0
+        self._restore_complete = not (cfg.checkpoint_dir
+                                      and cfg.restore_on_start)
+        if cfg.checkpoint_dir:
+            from veneur_tpu_torch.persistence import CheckpointWriter
+            self._ckpt_writer = CheckpointWriter(
+                cfg.checkpoint_dir, retain=max(1, cfg.checkpoint_retain),
+                write_timer=self._t_ckpt_write,
+                bytes_counter=self._c_ckpt_bytes,
+                writes_counter=self._c_ckpt_writes)
         # -- history tier (history/) ---------------------------------------
         # Off by default: no ring on the device, flushes run the plain
         # program. Server-scoped on purpose: the writer's key index
@@ -411,13 +446,15 @@ class Server:
         self._c_parse_errors = M.counter(
             "veneur.parse_errors_total",
             "statsd/SSF payloads that failed to parse (Python layer)")
-        M.counter("veneur.import.errors_total",
-                  "imported metrics rejected by /import or gRPC ingest")
+        self._c_import_errors = M.counter(
+            "veneur.import.errors_total",
+            "imported metrics rejected by /import or gRPC ingest")
         self._c_internal_errors = M.counter(
             "veneur.pipeline.internal_errors_total",
             "work items caught by the pipeline thread's backstop")
-        M.counter("veneur.import.metrics_total",
-                  "metrics accepted from the forward/import tier")
+        self._c_imported = M.counter(
+            "veneur.import.metrics_total",
+            "metrics accepted from the forward/import tier")
         M.counter("veneur.forward.error_total", "failed forward sends")
         M.counter("veneur.forward.sends_total", "completed forward sends")
         M.counter("veneur.forward.retries_total",
@@ -426,9 +463,10 @@ class Server:
                   "already-folded forward intervals suppressed by the "
                   "dedup window (duplicates are still acked so senders "
                   "evict)")
-        M.counter("veneur.forward.envelope_rejected_total",
-                  "forward imports rejected for malformed or out-of-bound "
-                  "(source_id, epoch, seq) envelopes — never folded")
+        self._c_envelope_rejected = M.counter(
+            "veneur.forward.envelope_rejected_total",
+            "forward imports rejected for malformed or out-of-bound "
+            "(source_id, epoch, seq) envelopes — never folded")
         M.counter("veneur.collective.absorbed_rows_total",
                   "forwardable rows handed to the co-located collective "
                   "tier as device arrays instead of gRPC")
@@ -464,17 +502,22 @@ class Server:
             "average packed-emit call latency over the last flush "
             "interval (C++ vt_emit_packed, steady_clock)")
         self._ring_emit_prev = (0, 0)
-        M.counter("veneur.checkpoint.writes_total",
-                  "checkpoint snapshots durably written")
-        M.counter("veneur.checkpoint.bytes",
-                  "serialized snapshot bytes written (manifest + chunks)")
-        M.counter("veneur.checkpoint.restores_total",
-                  "snapshots folded into a starting server")
-        M.counter("veneur.checkpoint.corrupt_total",
-                  "snapshots rejected by checksum/schema validation and "
-                  "quarantined")
-        M.timer("veneur.checkpoint.write_duration_ns",
-                "one checkpoint serialize+fsync on the writer thread")
+        self._c_ckpt_writes = M.counter(
+            "veneur.checkpoint.writes_total",
+            "checkpoint snapshots durably written")
+        self._c_ckpt_bytes = M.counter(
+            "veneur.checkpoint.bytes",
+            "serialized snapshot bytes written (manifest + chunks)")
+        self._c_ckpt_restores = M.counter(
+            "veneur.checkpoint.restores_total",
+            "snapshots folded into a starting server")
+        self._c_ckpt_corrupt = M.counter(
+            "veneur.checkpoint.corrupt_total",
+            "snapshots rejected by checksum/schema validation and "
+            "quarantined")
+        self._t_ckpt_write = M.timer(
+            "veneur.checkpoint.write_duration_ns",
+            "one checkpoint serialize+fsync on the writer thread")
         self._c_tcp_rejected = M.counter(
             "veneur.tcp.rejected_total",
             "TCP statsd connections refused at tcp_max_connections")
@@ -668,16 +711,20 @@ class Server:
                    self._collect_circuit_opens, kind="counter",
                    labelnames=("sink",),
                    help="closed-to-open breaker transitions")
+        M.callback("veneur.checkpoint.age_s",
+                   lambda: (time.time() - self._ckpt_writer.last_write_ts
+                            if self._ckpt_writer is not None
+                            and self._ckpt_writer.last_write_ts else None),
+                   help="seconds since the last durable checkpoint")
         # families of features this package has not ported yet: the
-        # spill and exactly-once forwarding (A6f), checkpoints (A6),
-        # overload and tenancy (A11), table growth (A8)
+        # spill and exactly-once forwarding (A6f), overload and tenancy
+        # (A11), table growth (A8)
         for name, kind, labels in (
                 ("veneur.forward.spill_bytes", "gauge", ()),
                 ("veneur.forward.spill.spilled_total", "counter", ()),
                 ("veneur.forward.spill.dropped_total", "counter", ()),
                 ("veneur.forward.acked_seq", "gauge", ()),
                 ("veneur.dedup.window_evictions_total", "counter", ()),
-                ("veneur.checkpoint.age_s", "gauge", ()),
                 ("veneur.overload.state", "gauge", ()),
                 ("veneur.overload.pressure", "gauge", ()),
                 ("veneur.overload.shed_total", "counter", ("class",)),
@@ -881,11 +928,43 @@ class Server:
             # enqueued here precedes any later in-place ingest step on
             # this thread's stream (query/snapshot.py)
             item.run(self.aggregator)
+        elif isinstance(item, _ImportBytes):
+            t0 = time.perf_counter_ns()
+            n, errs = self.aggregator.import_pb_bytes(bytes(item))
+            self._c_imported.inc(n)
+            if errs:
+                self._c_import_errors.inc(errs)
+            self._report_import_merge(t0)
+        elif isinstance(item, _ImportBatch):
+            from veneur_tpu_torch.forward.convert import import_into
+            # counted on this one thread, so concurrent imports cannot
+            # lose increments (importsrv/server.go:130 import.metrics_total)
+            t0 = time.perf_counter_ns()
+            self._c_imported.inc(len(item))
+            for metric in item:
+                try:
+                    import_into(self.aggregator, metric)
+                except Exception as e:
+                    # counted, so a mixed fleet sees incompatible payloads
+                    # (foreign sketch bytes) instead of losing them
+                    self._c_import_errors.inc()
+                    log.warning("bad imported metric %s: %s",
+                                metric.name, e)
+            self._report_import_merge(t0)
         elif isinstance(item, _SpanMetricBatch):
             for m in item:
                 self.aggregator.process_metric(m)
         else:
             self._process_packets(item)
+
+    def _report_import_merge(self, t0_ns: int) -> None:
+        """veneur.import.response_duration_ns tagged part:merge (the
+        reference's http.go:78: time spent handing imports to workers)."""
+        from veneur_tpu_torch.samplers import ssf_samples
+        from veneur_tpu_torch.trace.client import report_one
+        report_one(self.trace_client, ssf_samples.timing(
+            "veneur.import.response_duration_ns",
+            (time.perf_counter_ns() - t0_ns) / 1e9, {"part": "merge"}))
 
     def _handle_flush_request(self, req: FlushRequest) -> None:
         """Pipeline-thread half of a flush: ONLY the state/table swap; all
@@ -931,6 +1010,8 @@ class Server:
             "parse_errors": self.parse_errors + agg.extra_parse_errors(),
             "processed": agg.processed + 0,
             "dropped": agg.dropped_capacity,
+            "import_errors": self.import_errors,
+            "imported_total": self.imported_total,
             "internal_errors": self.internal_errors,
             "spans_received": self.span_pipeline.spans_received,
             "span_chan_cap_hits": self.span_pipeline.chan_cap_hits,
@@ -1070,6 +1151,14 @@ class Server:
     @property
     def internal_errors(self) -> int:
         return int(self._c_internal_errors.value())
+
+    @property
+    def import_errors(self) -> int:
+        return int(self._c_import_errors.value())
+
+    @property
+    def imported_total(self) -> int:
+        return int(self._c_imported.value())
 
     @property
     def flush_count(self) -> int:
@@ -1308,6 +1397,13 @@ class Server:
                 "(use enable_profiling for the cProfile CPU profile)")
         for sink in self.metric_sinks + self.span_sinks:
             sink.start()
+        # durable restart: fold the newest valid checkpoint into the
+        # (still empty) first interval before any ingest thread exists;
+        # restore merges through the same lanes as live traffic, so
+        # samples arriving after this land on top of it
+        if self._ckpt_writer is not None and self.cfg.restore_on_start:
+            self._restore_from_checkpoint()
+            self._restore_complete = True  # /readyz gates on this
         t = threading.Thread(target=self._pipeline_loop, daemon=True,
                              name="pipeline")
         t.start()
@@ -1462,6 +1558,21 @@ class Server:
                     f"http_address must be tcp, got {self.cfg.http_address!r}")
             self._httpd = start_http_server(self, target)
             self.http_port = self._httpd.server_address[1]
+
+        # global-tier import server (reference importsrv/,
+        # server.go:753-762). The envelope's duplicate window is not
+        # ported (A6f), so the service runs without the metadata contract,
+        # as the JAX Server does with forward_dedup_window 0.
+        if self.cfg.grpc_address:
+            from veneur_tpu_torch.forward import rpc
+            _, target = resolve_addr(
+                self.cfg.grpc_address if "//" in self.cfg.grpc_address
+                else f"tcp://{self.cfg.grpc_address}")
+            native_import = hasattr(self.aggregator, "import_pb_bytes")
+            self._grpc_server, self.grpc_port = rpc.serve(
+                self.import_bytes if native_import else self.import_metrics,
+                f"{target[0]}:{target[1]}", raw=native_import,
+                on_reject=self._c_envelope_rejected.inc)
         self._redact_secrets()
 
     _SECRET_FIELDS = (
@@ -1488,6 +1599,43 @@ class Server:
             self.cfg.signalfx_per_tag_api_keys = [
                 {"name": d.get("name", ""), "api_key": "REDACTED"}
                 for d in self.cfg.signalfx_per_tag_api_keys]
+
+    def import_metrics(self, metrics: List, envelope=None) -> bool:
+        """Import entry for parsed metrics (gRPC without the native
+        engine, and POST /import): enqueue onto the pipeline thread
+        (importsrv/server.go:102 SendMetrics → IngestMetrics). Returns
+        True, the gRPC service's ack: nothing sheds an import here
+        (overload admission waits for A11)."""
+        self.packet_queue.put(_ImportBatch(metrics))
+        self._trace_import_absorb(envelope, rows=len(metrics))
+        return True
+
+    def import_bytes(self, data: bytes, envelope=None) -> bool:
+        """Raw-bytes gRPC import entry (native decode path): the pipeline
+        thread hands the serialized MetricList straight to the engine's
+        importer."""
+        self.packet_queue.put(_ImportBytes(data))
+        self._trace_import_absorb(envelope, nbytes=len(data))
+        return True
+
+    def _trace_import_absorb(self, envelope, rows=None, nbytes=None):
+        """When the sender's envelope carries trace context, record a
+        veneur.import.absorb span parented onto its flush.forward span,
+        so the receiving tier's span pipeline holds one connected tree
+        per interval. An untraced envelope records nothing."""
+        if envelope is None \
+                or getattr(envelope, "trace_id", None) is None:
+            return
+        from veneur_tpu_torch.trace.tracer import Span
+        sp = Span("veneur.import.absorb", service="veneur",
+                  trace_id=envelope.trace_id,
+                  parent_id=envelope.parent_span_id)
+        sp.set_tag("source_id", envelope.source_id)
+        if rows is not None:
+            sp.set_tag("rows", str(rows))
+        if nbytes is not None:
+            sp.set_tag("bytes", str(nbytes))
+        sp.client_finish(self.trace_client)
 
     def process_span_metrics(self, metrics: List) -> None:
         """Extraction-sink loop-back: span-derived UDPMetrics re-enter the
@@ -1589,8 +1737,19 @@ class Server:
 
         dev_t0 = time.perf_counter_ns()
         sp = stage("device_update")
-        flush_arrays, table = agg.compute_flush(
-            state, table, self.cfg.percentiles, history=self.history)
+        # a due checkpoint rides the flush's raw sketch outputs: the same
+        # want_raw gather in the flush's own copy, no checkpoint-only read
+        ckpt_due = (self._ckpt_writer is not None
+                    and self._flushes_since_ckpt + 1
+                    >= max(1, self.cfg.checkpoint_interval_flushes))
+        raw = None
+        if ckpt_due:
+            flush_arrays, table, raw = agg.compute_flush(
+                state, table, self.cfg.percentiles, want_raw=True,
+                history=self.history)
+        else:
+            flush_arrays, table = agg.compute_flush(
+                state, table, self.cfg.percentiles, history=self.history)
         self._t_flush_phase.observe(time.perf_counter_ns() - dev_t0,
                                     phase="device_update")
         if trace:
@@ -1608,6 +1767,12 @@ class Server:
                         and self.history.armed else None)
             self.watch_engine.offer(
                 state, table, int(stats.get("set_shift", 0)), ts, hist_seq)
+        if self._ckpt_writer is not None:
+            if ckpt_due:
+                self._checkpoint_interval(agg, flush_arrays, table, raw, ts)
+                self._flushes_since_ckpt = 0
+            else:
+                self._flushes_since_ckpt += 1
 
         if self.cfg.count_unique_timeseries:
             from veneur_tpu_torch.server.flusher import unique_timeseries
@@ -1727,6 +1892,78 @@ class Server:
             root.set_tag("h2d_bytes", str(h2d_delta))
         root.client_finish(self.trace_client)
 
+    # -- durability (persistence/) ------------------------------------------
+    def _build_snapshot(self, agg, flush_arrays, table, raw, ts) -> dict:
+        """The checkpoint snapshot of one flushed interval, with the watch
+        and history sidecars. `agg` owns the interval and its spec."""
+        from veneur_tpu_torch.persistence import build_snapshot
+        return build_snapshot(
+            agg.spec, table, flush_arrays, raw, agg_kind="single",
+            n_shards=1, interval_ts=ts, hostname=self.hostname,
+            watches=self._watch_snapshot(),
+            history=self._history_snapshot())
+
+    def _checkpoint_interval(self, agg, flush_arrays, table, raw,
+                             ts) -> None:
+        """Hand this interval's snapshot to the async writer. A checkpoint
+        that cannot be built degrades durability, never the flush."""
+        ck_t0 = time.perf_counter_ns()
+        try:
+            self._ckpt_writer.submit(
+                self._build_snapshot(agg, flush_arrays, table, raw, ts))
+        except Exception:
+            log.exception("checkpoint snapshot build failed; interval "
+                          "not checkpointed")
+        self._t_flush_phase.observe(time.perf_counter_ns() - ck_t0,
+                                    phase="checkpoint_build")
+
+    def _watch_snapshot(self) -> Optional[dict]:
+        """Watch registrations and firing state for the checkpoint's
+        sidecar chunk; None (chunk omitted) when the tier is off or no
+        watch is registered."""
+        if self.watch_engine is None:
+            return None
+        return self.watch_engine.snapshot()
+
+    def _history_snapshot(self) -> Optional[dict]:
+        """The history ring (arrays and host key index) for the
+        checkpoint's sidecar chunks; None when the tier is off or the ring
+        has not armed yet."""
+        if self.history is None or not self.history.armed:
+            return None
+        return self.history.snapshot()
+
+    def _restore_from_checkpoint(self) -> None:
+        """Fold the newest valid snapshot into the live aggregator.
+        Corrupt snapshots are quarantined and counted inside
+        restore_latest; any other failure cold-starts: a bad checkpoint
+        must never keep the server from serving. The spill, forward,
+        tenant and key-table sidecars of a JAX checkpoint belong to
+        features not ported yet (A6f, A11, A8) and are not read."""
+        from veneur_tpu_torch.persistence import (fold_snapshot,
+                                                  restore_latest)
+        try:
+            found = restore_latest(self.cfg.checkpoint_dir,
+                                   on_corrupt=self._c_ckpt_corrupt.inc)
+            if found is None:
+                log.info("no restorable checkpoint under %s; cold start",
+                         self.cfg.checkpoint_dir)
+                return
+            snap, path = found
+            n = fold_snapshot(self.aggregator, snap)
+            if snap.get("watches") and self.watch_engine is not None:
+                # monitors keep their debounce streaks and ALERT holds
+                self.watch_engine.restore(snap["watches"])
+            if snap.get("history") and self.history is not None:
+                # the ring survives the restart byte for byte; a spec
+                # mismatch keeps the fresh ring (history is a cache)
+                self.history.restore(snap["history"])
+            self._c_ckpt_restores.inc()
+            log.info("restored %d metrics from %s (interval_ts=%d)",
+                     n, path, snap["interval_ts"])
+        except Exception:
+            log.exception("checkpoint restore failed; cold start")
+
     def _report_self_metrics(self, n_flushed: int, flush_seconds: float,
                              stats: dict, final=None):
         """Every stage emits self-metrics through the pipeline itself
@@ -1744,8 +1981,14 @@ class Server:
                "veneur.parse_errors_total": stats["parse_errors"],
                "veneur.worker.metrics_processed_total": stats["processed"],
                "veneur.worker.metrics_dropped_total": stats["dropped"],
+               "veneur.import.errors_total": stats.get("import_errors", 0),
                "veneur.pipeline.internal_errors_total":
                    stats.get("internal_errors", 0),
+               "veneur.import.metrics_total": stats.get("imported_total", 0),
+               # the reference emits both: import.metrics_total from the
+               # import server and the worker-level alias
+               "veneur.worker.metrics_imported_total":
+                   stats.get("imported_total", 0),
                "veneur.flush.intervals_deferred_total":
                    stats["intervals_deferred"],
                "veneur.flush.sink_flushes_skipped_total":
@@ -2060,6 +2303,8 @@ class Server:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()  # release the listening fd
+        if self._grpc_server is not None:
+            self._grpc_server.stop(grace=1.0).wait(5.0)
         if self.query_engine is not None:
             # before _STOP: the batcher thread enqueues snapshot/launch
             # requests on packet_queue; one racing in behind _STOP would
@@ -2111,6 +2356,28 @@ class Server:
             if self._flush_thread.is_alive():
                 log.error("flush worker did not exit within %.0fs",
                           device_timeout)
+        # graceful-exit durability: checkpoint the tail that never reached
+        # a flush, synchronously and newest, so a graceful restart
+        # restores only the tail (flushed intervals already left through
+        # the sinks; restoring them too would double-count the additive
+        # kinds downstream)
+        if self._ckpt_writer is not None:
+            if self.cfg.checkpoint_on_shutdown:
+                # a periodic snapshot still waiting for the writer thread
+                # lands first, so the tail is the newest checkpoint
+                self._ckpt_writer.wait_idle(device_timeout)
+                try:
+                    agg = self.aggregator
+                    state, table = agg.swap()
+                    flush_arrays, table, raw = agg.compute_flush(
+                        state, table, self.cfg.percentiles, want_raw=True,
+                        history=self.history)
+                    self._ckpt_writer.write_sync(self._build_snapshot(
+                        agg, flush_arrays, table, raw, int(time.time())))
+                except Exception:
+                    log.exception("final checkpoint failed; last periodic "
+                                  "checkpoint remains newest")
+            self._ckpt_writer.close()
         with self._aux_lock:
             aux = list(self._aux_threads)
         for t in aux:

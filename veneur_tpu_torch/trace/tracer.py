@@ -75,8 +75,8 @@ class Span:
         """Deprecated no-op (opentracing.go:351)."""
 
     def set_baggage_item(self, key: str, value: str) -> "Span":
-        """Span-level baggage (opentracing.go:324 SetBaggageItem); the
-        OpenTracing adapter that reads it is not ported yet."""
+        """Span-level baggage, carried into context()/child contexts
+        (opentracing.go:324 SetBaggageItem)."""
         self.baggage[key] = value
         return self
 
@@ -95,6 +95,10 @@ class Span:
         if log_records:
             self.log_lines.extend(log_records)
         return self.finish(finish_time_ns)
+
+    def context(self):
+        from veneur_tpu_torch.trace.opentracing import SpanContext
+        return SpanContext.from_span(self)
 
     def add(self, *samples):
         """Attach SSF metric samples to ride along with the span

@@ -47,7 +47,7 @@ from veneur_tpu_torch.query.engine import stage_inputs
 from veneur_tpu_torch.query.nameindex import NameIndex
 from veneur_tpu_torch.query.snapshot import _META_KIND, COUNT_TABLES
 from veneur_tpu_torch.watch.compiler import WatchPlan, compile_watches
-from veneur_tpu_torch.watch.model import (WATCH_KINDS, Watch,
+from veneur_tpu_torch.watch.model import (WATCH_KINDS, Watch, WatchError,
                                           WatchLimitError, parse_watch)
 from veneur_tpu_torch.watch.notify import StreamHub, WebhookNotifier
 
@@ -401,6 +401,51 @@ class WatchEngine:
         dur = time.perf_counter_ns() - t0
         if self._c_eval_ns is not None:
             self._c_eval_ns.inc(dur)
+
+    # -- persistence ---------------------------------------------------------
+    def snapshot(self) -> Optional[dict]:
+        """Deterministic registration + firing-state dict for the
+        checkpoint sidecar chunk. None (chunk omitted) when no watches
+        are registered. Byte-reproducible: snapshot → restore →
+        snapshot serializes identically."""
+        with self._lock:
+            if not self._watches:
+                return None
+            return {"next_id": self._next_id,
+                    "watches": [{"spec": w.to_dict(),
+                                 "state": w.state_dict()}
+                                for _wid, w in sorted(
+                                    self._watches.items())]}
+
+    def restore(self, data: dict) -> None:
+        """Adopt a checkpoint's watch chunk (replacing any current
+        registrations — restore runs before the HTTP API serves). A
+        malformed chunk is logged and ignored: a bad checkpoint must
+        never keep the server from serving."""
+        try:
+            ws: Dict[int, Watch] = {}
+            for ent in data.get("watches", []):
+                spec = dict(ent["spec"])
+                wid = int(spec.pop("id"))
+                w = Watch(wid, parse_watch(spec))
+                w.load_state(ent.get("state") or {})
+                ws[wid] = w
+            next_id = max([int(data.get("next_id", 1))]
+                          + [wid + 1 for wid in ws])
+        except (WatchError, KeyError, TypeError, ValueError) as e:
+            log.warning("ignoring malformed watch chunk in checkpoint: "
+                        "%s", e)
+            return
+        by_kind: Dict[str, int] = {}
+        for w in ws.values():
+            by_kind[w.kind] = by_kind.get(w.kind, 0) + 1
+        with self._lock:
+            self._watches = ws
+            self._active_by_kind = by_kind
+            self._next_id = next_id
+            self._generation += 1
+        self._update_active_gauge()
+        log.info("restored %d watches from checkpoint", len(ws))
 
     # -- lifecycle -----------------------------------------------------------
     def close(self) -> None:
