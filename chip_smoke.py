@@ -141,7 +141,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches of the phase, which the kernels line carries (K3's as its
    launches).
 
-11. (run last) the global tier, BASELINE config 4: 64 locals, each a
+11. (run before phase 12) the global tier, BASELINE config 4: 64
+   locals, each a
    NativeAggregator `feed` of its own seeded interval (10,000 global
    counters, a hundred of them byte counters whose sums pass 2^24; 1,000
    global gauges; 2,000 timer names under Zipf(1.2) weights, 30k
@@ -170,8 +171,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    equals a card Server's that imported the 16 locals alone in counters,
    gauges, set words and histogram count/min/max (quantiles: the gap is
    reported, ROADMAP C-5). The checkpoint restored on the CPU flushes the
-   same within 2e-5, and the 65-local interval replayed on a CPU Server
-   gives the card's quantiles within rtol/atol 2e-5. K1 is held
+   same within 2e-5, and the first 8 locals' lists and the JSONMetric
+   batch, replayed on a fresh card Server and on a CPU Server, give the
+   same quantiles within rtol/atol 2e-5 (a subset: the CPU's plain
+   versions take about a second a list at the default widths). K1 is held
    byte-exact to its plain version on a CPU copy of the fifth import
    step's state and streams (its longest runs reported), and K2 on the
    flushes' own rows. Prints metrics/s and centroids/s through gRPC, the
@@ -180,6 +183,41 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    error against the midpoint quantiles of the locals' raw samples
    (reported, not held), and the phase's launches, which the kernels line
    carries.
+12. (run after phase 11) the forward tier: four local Servers as phase 9
+   configures them (native ingest, the UDP listener), each forwarding
+   exactly once (forward_dedup_window 64) to a port ProxyServer over two
+   global Servers (gRPC import, dedup window 64), all on the card at the
+   default widths; the first local also checkpoints. Each local takes
+   its own seed of phase 4's mix, 50,000 lines an interval through its
+   listener, with every tenth counter and gauge name global-only, all
+   but 100 set names local-only (a unit stays under gRPC's 4 MiB cap),
+   and 100 global byte counters whose sums pass 2^24 (the unit one local's
+   lines would make with every set name forwarded is measured and
+   printed, never sent: past the cap, ROADMAP C-7). Interval 1: each local
+   flushes and forwards; the globals fold and flush. Gates: every key on
+   one global, never both; counters the exact f64 sums of the lines,
+   gauges one of the locals' last writes, set estimates within 5% for
+   keys with >= 100 members, timer p50 / p99 within 6% / 1% of the
+   midpoint quantiles of the four locals' samples for keys with >= 24;
+   every local's unit acked and its spill empty. Interval 2: the second
+   global fails at the proxy (FAULTS at PROXY_FORWARD): every local holds
+   one unit and veneur.forward.spill_bytes > 0. Interval 3, the fault
+   cleared: each held unit is re-sent under its seq and the proxy
+   re-attempts only the failed sub-batch; the globals' counters over
+   intervals 2 and 3 are the exact sums of their lines. Then the first
+   local's next unit is held by the fault again, more lines are left
+   unflushed, and it shuts down; a new card Server on its checkpoint_dir
+   restores (K1, skip_forwarded), opens the next epoch, and replays both
+   old-epoch units: the globals' counters are the exact sums of those
+   lines. K1 launches equal the seven Servers' ingest steps and K2
+   launches their compute_flush calls (the shutdowns' tail flushes
+   included), counted before K2 is held to its plain version on the
+   first global flush's rows and timed. Prints each local flush's wall,
+   forward and export_metrics ms, each unit's metrics and bytes, the
+   time from a local's flush to the globals' fold, the relay's metrics/s
+   from the locals' pump to the globals' fold, the globals' import and
+   stats-lane steps, the restore's ms and steps and the phase's
+   launches, which the kernels line carries.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -2545,6 +2583,8 @@ def server_tiers_path(device, frames, clock_hz) -> dict:
 # unflushed at shutdown, comes from GLOBAL_TAIL_LOCALS other locals.
 GLOBAL_LOCALS = 64
 GLOBAL_TAIL_LOCALS = 16
+# the locals replayed on a card Server and a CPU Server, held to each other
+GLOBAL_REPLAY_LOCALS = 8
 GLOBAL_SHAPE = dict(counters=10_000, gauges=1_000, timers=2_000,
                     timer_samples=30_000, sets=256, set_members=20_000,
                     uids=100_000)
@@ -2681,10 +2721,12 @@ def _import(srv, lists, json_body=None) -> float:
 
 def _flush_raw(srv, label: str) -> tuple:
     """One manual flush: its wall ms, each flush phase's ms, and the
-    flush's own (res, table, raw) (raw None when no checkpoint was due)."""
+    flush's own (res, table, raw) (raw None when no checkpoint was due).
+    A wrapper already on the aggregator (`_count_flushes`) stays on."""
     agg = srv.aggregator
     captured = []
     orig = agg.compute_flush
+    wrapped = "compute_flush" in vars(agg)
 
     def capture(state, table, percentiles, **kw):
         out = orig(state, table, percentiles, **kw)
@@ -2696,7 +2738,10 @@ def _flush_raw(srv, label: str) -> tuple:
     try:
         _check(srv.trigger_flush(timeout=300), f"{label}: flush failed")
     finally:
-        del agg.compute_flush
+        if wrapped:
+            agg.compute_flush = orig
+        else:
+            del agg.compute_flush
     wall_ms = (time.perf_counter() - t0) * 1e3
     after = _phase_sums(srv)
     _check(len(captured) == 1, f"{label}: {len(captured)} compute_flush calls")
@@ -2866,15 +2911,14 @@ def _import_interval(srv, lists, json_body, counter_want) -> float:
     return import_s
 
 
-def _cpu_replay(lists, json_body, counter_want) -> dict:
-    """The same imports through the same Server on the CPU, where the
-    plain versions run: the flush's app rows."""
-    import torch
-    srv, _sink = _global_server(torch.device("cpu"), query_enabled=True)
+def _replay(device, lists, json_body, counter_want) -> dict:
+    """Some locals' imports through a fresh global Server on `device` (on
+    the CPU the plain versions run): the flush's app rows."""
+    srv, _sink = _global_server(device, query_enabled=True)
     srv.start()
     try:
         _import_interval(srv, lists, json_body, counter_want)
-        _ms, _ph, flushed = _flush_raw(srv, "CPU replay")
+        _ms, _ph, flushed = _flush_raw(srv, f"{device.type} replay")
     finally:
         srv.shutdown()
     return _global_rows(*flushed)
@@ -2914,7 +2958,7 @@ def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
                  query_enabled=True, history_windows=8,
                  history_max_keys=1 << 14)
     try:
-        # -- the 64-local interval on the card --------------------------------
+        # -- the locals' interval on the card ------------------------------
         srv, sink = _global_server(device, checkpoint_dir=root, **tiers)
         srv.start()
         try:
@@ -3130,12 +3174,17 @@ def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
         out["cpu_restore_worst"] = _same_global_rows(
             _global_rows(*cpu_flushed), got_tail, 2e-5,
             "CPU restore vs card restore", est_rtol=2e-5)
-        # -- the 64-local interval replayed on the CPU -----------------------
+        # -- some locals' interval replayed on the card and on the CPU ------
         t_c = time.perf_counter()
+        some = lists[:GLOBAL_REPLAY_LOCALS]
+        some_sum = _global_oracle(some, p)["counter"][("g.req.0", "svc:api")]
+        on_card = _replay(device, some, json_body, some_sum)
+        torch.cuda.empty_cache()
         out["cpu_replay_worst"] = _same_quantiles(
-            _cpu_replay(lists, json_body, grpc_sum), rows, 2e-5,
-            "CPU replay")
-        out["cpu_replay_s"] = time.perf_counter() - t_c
+            _replay(torch.device("cpu"), some, json_body, some_sum), on_card,
+            2e-5, "CPU replay")
+        out.update(replay_locals=len(some),
+                   cpu_replay_s=time.perf_counter() - t_c)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3151,6 +3200,542 @@ def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
                restore_launches=restore_launches,
                launches_phase={k: out["launches"][k] + restore_launches[k]
                                for k in restore_launches})
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 12: the forward tier -------------------------------------------------
+
+# four locals forward each flush through one proxy to two globals, exactly
+# once; the first local also checkpoints, for the restart
+FORWARD_LOCALS = 4
+FORWARD_LINES = 50_000
+FORWARD_TAIL_LINES = 10_000
+FORWARD_SETS = 100
+_SCOPE_TAG = b"veneurglobalonly"
+_LOCAL_TAG = b"veneurlocalonly"
+
+
+def _forward_lines(seed: int, n: int = FORWARD_LINES,
+                   local_sets: bool = True) -> list:
+    """One local's interval: phase 4's mix, with every tenth counter name
+    and every tenth gauge name global-only (so that those forward), the
+    set names past the first 100 local-only, and 100 global byte
+    counters of 2^22 to 2^23 each, whose sums over the four locals pass
+    2^24. (A set forwards as a dense sketch, 2^14 4-bit registers = 8
+    KB: the hundreds of set names phase 4's mix gives a local would pass
+    gRPC's 4 MiB message cap at the proxy, as in the reference.)
+
+    The byte counters are multiples of 8. An ingest step sums a slot's
+    entries in one f32 before the two-float fold, so where several
+    locals' imports of a key share a global's step, a partial sum past
+    2^24 rounds (ROADMAP C-6, the reference's own). Multiples of 8 keep
+    every such sum exact up to 2^27, so the gate holds the two-float
+    accumulation across steps; 100 more global counters of odd values
+    (`bytes.odd.*`, the same range) show the rounding, reported and not
+    held. With `local_sets` False every set name forwards, as in phase
+    4's mix unchanged (that unit's size is reported, never sent)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for line in make_lines(rng, n):
+        name = line.split(b":", 1)[0]
+        i = int(name.rsplit(b".", 1)[1])
+        if name.startswith((b"api.requests.", b"queue.depth.")) \
+                and i % 10 == 0:
+            line += (b"," if b"|#" in line else b"|#") + _SCOPE_TAG
+        elif local_sets and name.startswith(b"users.active.") \
+                and i >= FORWARD_SETS:
+            line += b"|#" + _LOCAL_TAG
+        out.append(line)
+    out += [b"bytes.sent.%d:%d|c|#veneurglobalonly" % (i, 8 * v)
+            for i, v in enumerate(rng.integers(1 << 19, 1 << 20, 100))]
+    out += [b"bytes.odd.%d:%d|c|#veneurglobalonly" % (i, 2 * v + 1)
+            for i, v in enumerate(rng.integers(1 << 21, 1 << 22, 100))]
+    return out
+
+
+def _held_counters(rows, oracle, label) -> dict:
+    """The global counters against the exact f64 sums of the lines: equal
+    for every key but `bytes.odd.*`, whose gaps (C-6) are returned."""
+    got, want = rows["counter"], oracle["counter"]
+    _check(sorted(got) == sorted(want), f"{label}: counter keys differ "
+           f"({len(got)} vs {len(want)})")
+    odd = [k for k in want if k[0].startswith("bytes.odd.")]
+    _check(len(odd) == 100, f"{label}: {len(odd)} odd byte counters")
+    held = [k for k in want if not k[0].startswith("bytes.odd.")]
+    _check(all(got[k] == want[k] for k in held),
+           f"{label}: counters differ from the exact sums of the lines")
+    gaps = [abs(got[k] - want[k]) for k in odd]
+    return dict(held=len(held), odd_keys=len(odd),
+                odd_off=sum(g > 0 for g in gaps), odd_max_abs=max(gaps))
+
+
+def _forward_oracle(intervals) -> dict:
+    """What the globals must flush for some local intervals' lines (one
+    list of lines each): every global counter's exact f64 sum, every
+    global gauge's candidates (each local's last write), every timer's
+    samples and every forwarded set's members, by (name, sorted tags
+    without the scope tags)."""
+    counters, gauges, timers, sets = {}, {}, {}, {}
+    for lines in intervals:
+        last = {}
+        for line in lines:
+            head, *rest = line.split(b"|")
+            name, value = head.split(b":", 1)
+            rate, tags, scoped, local = 1.0, [], False, False
+            for part in rest[1:]:
+                if part.startswith(b"@"):
+                    rate = float(part[1:])
+                else:
+                    tags = part[1:].split(b",")
+                    scoped, local = _SCOPE_TAG in tags, _LOCAL_TAG in tags
+                    tags = sorted(t for t in tags
+                                  if t not in (_SCOPE_TAG, _LOCAL_TAG))
+            key = (name.decode(), b",".join(tags).decode())
+            if rest[0] == b"c":
+                if scoped:
+                    counters[key] = counters.get(key, 0.0) + float(
+                        np.float32(float(value) * (1.0 / rate)))
+            elif rest[0] == b"g":
+                if scoped:
+                    last[key] = float(np.float32(float(value)))
+            elif rest[0] == b"ms":
+                timers.setdefault(key, []).append(
+                    float(np.float32(float(value))))
+            elif not local:
+                sets.setdefault(key, set()).add(value)
+        for key, v in last.items():
+            gauges.setdefault(key, set()).add(v)
+    return dict(counter=counters, gauge=gauges, timer=timers, set=sets)
+
+
+def _forward_rows(res, table, _raw=None) -> dict:
+    """One global flush's app rows by kind and (name, sorted tags)."""
+    out = {k: {} for k in ("counter", "gauge", "set", "quantiles")}
+    for kind, field in (("counter", "counter"), ("gauge", "gauge"),
+                        ("set", "set_estimate"),
+                        ("histogram", "histo_quantiles")):
+        for i, (_s, m) in enumerate(table.get_meta(kind)):
+            if m.name.startswith(("veneur.", "ssf.")):
+                continue
+            key = (m.name, ",".join(sorted(m.tags)))
+            v = res[field][i]
+            if kind == "histogram":
+                out["quantiles"][key] = np.asarray(v, np.float64)
+            else:
+                out[kind][key] = float(v)
+    return out
+
+
+def _merge_forward_rows(per_global, label) -> dict:
+    """The globals' rows as one flush; every key on exactly one global."""
+    merged = {k: {} for k in per_global[0]}
+    for rows in per_global:
+        for kind, by_key in rows.items():
+            both = set(merged[kind]) & set(by_key)
+            _check(not both, f"{label}: {len(both)} {kind} keys on both "
+                   f"globals, e.g. {sorted(both)[:2]}")
+            merged[kind].update(by_key)
+    _check(all(any(rows[k] for k in rows) for rows in per_global),
+           f"{label}: a global received no key")
+    return merged
+
+
+def _check_forward_flush(rows, oracle, label) -> dict:
+    """Counters exact, gauges one of the locals' last writes, set
+    estimates within 5% for keys with >= 100 members, timer p50 / p99
+    within 6% / 1% of the midpoint quantiles of the locals' samples for
+    keys with >= 24."""
+    counters = _held_counters(rows, oracle, label)
+    _check(sorted(rows["gauge"]) == sorted(oracle["gauge"]) and all(
+        v in oracle["gauge"][k] for k, v in rows["gauge"].items()),
+        f"{label}: a gauge is none of the locals' last writes")
+    _check(sorted(rows["set"]) == sorted(oracle["set"]),
+           f"{label}: set keys differ")
+    big = [k for k, m in oracle["set"].items() if len(m) >= 100]
+    set_rel = [abs(rows["set"][k] - len(oracle["set"][k]))
+               / len(oracle["set"][k]) for k in big]
+    _check(len(big) >= 8 and max(set_rel) < 0.05,
+           f"{label}: HLL off by {max(set_rel, default=0):.4f}")
+    _check(sorted(rows["quantiles"]) == sorted(oracle["timer"]),
+           f"{label}: timer keys differ")
+    by_len = {}
+    for k, v in oracle["timer"].items():
+        if len(v) >= 24:
+            by_len.setdefault(len(v), []).append(k)
+    worst = {0.5: 0.0, 0.99: 0.0}
+    checked = 0
+    for n, keys in by_len.items():
+        vals = np.asarray([oracle["timer"][k] for k in keys])
+        got = np.stack([rows["quantiles"][k] for k in keys])
+        for qi, q, tol in ((0, 0.5, 0.06), (2, 0.99, 0.01)):
+            exact = midpoint_quantile_rows(vals, q)
+            rel = np.abs(got[:, qi] - exact) / np.maximum(np.abs(exact),
+                                                          1e-9)
+            worst[q] = max(worst[q], float(rel.max()))
+            _check((rel < tol).all(), f"{label}: p{int(q * 100)} off by "
+                   f"{rel.max():.4f} on a {n}-sample key")
+        checked += len(keys)
+    _check(checked >= 8, f"{label}: quantile oracle checked {checked} keys")
+    return dict(counters=counters, gauges=len(rows["gauge"]),
+                sets=len(rows["set"]), timers=len(rows["quantiles"]),
+                quantile_keys_checked=checked, worst_p50_rel=worst[0.5],
+                worst_p99_rel=worst[0.99], worst_hll_rel=max(set_rel))
+
+
+def _local_server(device, proxy_port: int, **kw):
+    """A local: phase 9's Server config, forwarding exactly once to the
+    proxy."""
+    from veneur_tpu_torch.server.server import Server
+    return Server(_server_config(
+        profile_capture_enabled=False,
+        forward_address=f"127.0.0.1:{proxy_port}",
+        forward_dedup_window=64, **kw), device=device)
+
+
+@contextlib.contextmanager
+def _export_log():
+    """Yields a list of (ms, metrics, bytes) per export_metrics call in
+    the block (the Server looks it up at each call), the forward units'
+    staging."""
+    from veneur_tpu_torch.forward import convert
+    log, orig = [], convert.export_metrics
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        log.append(((time.perf_counter() - t0) * 1e3, len(out),
+                    sum(m.ByteSize() for m in out)))
+        return out
+    convert.export_metrics = timed
+    try:
+        yield log
+    finally:
+        convert.export_metrics = orig
+
+
+def _count_flushes(srv, flushes: list) -> None:
+    """Adds one to `flushes[0]` at each of the Server's compute_flush
+    calls: each launches K2 once on the card, on its histogram rows
+    padded to at least 64 (one block: no kind here passes 2^17 live
+    rows)."""
+    agg = srv.aggregator
+    orig = agg.compute_flush
+
+    def counted(*a, **kw):
+        flushes[0] += 1
+        return orig(*a, **kw)
+    agg.compute_flush = counted
+
+
+def _unit_size(device, lines) -> dict:
+    """The unit a local stages for these lines (a NativeAggregator flush
+    with want_raw, then export_metrics, as a Server's flush stages it):
+    its metrics, forwarded sets and serialized bytes."""
+    from veneur_tpu_torch.forward.convert import export_metrics
+    from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
+    from veneur_tpu_torch.server.native_aggregator import NativeAggregator
+    spec = _default_spec()
+    loc = NativeAggregator(spec, device=device)
+    loc.feed(b"\n".join(lines))
+    _res, table, raw = loc.flush([0.5], want_raw=True)
+    unit = export_metrics(raw, table, spec.compression, spec.hll_precision)
+    return dict(metrics=len(unit),
+                sets=sum(m.WhichOneof("value") == "set" for m in unit),
+                bytes=fpb.MetricList(metrics=unit).ByteSize())
+
+
+def _imports(globs) -> int:
+    return sum(g.imported_total + g.import_errors for g in globs)
+
+
+def _forward_round(locs, globs, proxy, lines_by_local, label,
+                   fails: bool, exports) -> list:
+    """Each local's lines through its UDP listener, then each local's
+    flush in turn, waiting for its forward to settle (acked, or failed
+    when `fails`) and for the globals to fold what the proxy delivered.
+    Returns each local's flush and forward numbers."""
+    for loc, lines in zip(locs, lines_by_local):
+        base = _lines_seen(loc.aggregator)
+        _send_paced(loc, _datagrams(lines), label)
+        _wait_seen(loc, base, len(lines), label)
+    out = []
+    for i, loc in enumerate(locs):
+        err0, sends0 = loc.forward_errors, loc.forward_sends_total
+        fwd0, imp0, n_exp = proxy.forwarded, _imports(globs), len(exports)
+        before = _phase_sums(loc)
+        t0 = time.perf_counter()
+        _check(loc.trigger_flush(timeout=300), f"{label}: local {i} flush")
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        while not (loc.forward_errors > err0 if fails else
+                   loc.forward_sends_total > sends0
+                   and len(loc.forward_spill) == 0):
+            _check(time.perf_counter() - t0 < 120,
+                   f"{label}: local {i}'s forward did not settle")
+            _check(fails or loc.forward_errors == err0,
+                   f"{label}: local {i}'s forward failed")
+            time.sleep(0.0005)
+        settled_ms = (time.perf_counter() - t0) * 1e3
+        while _imports(globs) - imp0 < proxy.forwarded - fwd0:
+            _check(time.perf_counter() - t0 < 120,
+                   f"{label}: the globals did not fold local {i}'s unit")
+            time.sleep(0.0005)
+        folded_ms = (time.perf_counter() - t0) * 1e3
+        phases = {k: (v - before.get(k, 0.0)) / 1e6
+                  for k, v in _phase_sums(loc).items()}
+        _check(len(exports) == n_exp + 1,
+               f"{label}: local {i} staged {len(exports) - n_exp} units")
+        exp_ms, n_metrics, n_bytes = exports[-1]
+        out.append(dict(flush_ms=flush_ms, settled_ms=settled_ms,
+                        flush_to_folded_ms=folded_ms,
+                        forward_ms=phases.get("forward", 0.0),
+                        export_ms=exp_ms, unit_metrics=n_metrics,
+                        unit_bytes=n_bytes,
+                        delivered=proxy.forwarded - fwd0))
+    return out
+
+
+def _flush_globals(globs, label) -> tuple:
+    """Both globals flushed by hand: their rows as one flush, and each
+    flush's wall ms."""
+    rows, walls = [], []
+    for i, g in enumerate(globs):
+        wall, _ph, flushed = _flush_raw(g, f"{label}: global {i}")
+        rows.append(_forward_rows(*flushed))
+        walls.append(wall)
+    return _merge_forward_rows(rows, label), walls
+
+
+def _spill_gauge(srv) -> float:
+    samples = srv.metrics.get("veneur.forward.spill_bytes").samples()
+    return samples[0][1] if samples else 0.0
+
+
+def forward_tier_path(device, clock_hz) -> dict:
+    """Phase 12: the forward tier on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    from veneur_tpu_torch.forward.discovery import StaticDiscoverer
+    from veneur_tpu_torch.forward.proxysrv import ProxyServer
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+    from veneur_tpu_torch.reliability.faults import FAULTS, PROXY_FORWARD
+    from veneur_tpu_torch.server.server import Server
+
+    t0 = time.perf_counter()
+    seeds = [[12_000 + 10 * r + i for i in range(FORWARD_LOCALS)]
+             for r in range(3)]
+    rounds = [[_forward_lines(s) for s in rs] for rs in seeds]
+    fourth, tail = _forward_lines(12_040), _forward_lines(12_050,
+                                                          FORWARD_TAIL_LINES)
+    oracle1 = _forward_oracle(rounds[0])
+    oracle23 = _forward_oracle(rounds[1] + rounds[2])
+    oracle_r = _forward_oracle([fourth, tail])
+    out = dict(locals=FORWARD_LOCALS, lines_per_interval=len(rounds[0][0]),
+               lines_s=time.perf_counter() - t0)
+    # the unit phase 4's mix would make with every set name forwarded:
+    # past gRPC's 4 MiB receive cap, which neither package raises
+    # (ROADMAP C-7), so the phase keeps set names past 100 local-only
+    out["unit_all_sets_forwarded"] = _unit_size(
+        device, _forward_lines(seeds[0][0], local_sets=False))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fwd_")
+    flushes = [0]
+    cuda_ingest.launches = cuda_digest.launches = 0
+    wide0 = cuda_digest.wide_launches
+    # every Server of the phase (`fleet`, for the launch count) and the
+    # ones still running (`live`, for the shutdown)
+    globs, locs, fleet, live, proxy = [], [], [], [], None
+    try:
+        globs = [Server(_server_config(
+            profile_capture_enabled=False, statsd_listen_addresses=[],
+            grpc_address="127.0.0.1:0", forward_dedup_window=64),
+            device=device) for _ in range(2)]
+        fleet += globs
+        live += globs
+        for g in globs:
+            _count_flushes(g, flushes)
+            g.start()
+        dests = [f"127.0.0.1:{g.grpc_port}" for g in globs]
+        _check(dests[1] not in dests[0], "global addresses overlap")
+        proxy = ProxyServer(StaticDiscoverer(dests), dedup_window=64)
+        proxy.start("127.0.0.1:0")
+        ckpt = dict(checkpoint_dir=f"{tmp}/local0", checkpoint_retain=1)
+        locs = [_local_server(device, proxy.port, **(ckpt if i == 0 else {}))
+                for i in range(FORWARD_LOCALS)]
+        fleet += locs
+        live += locs
+        for loc in locs:
+            _count_flushes(loc, flushes)
+            loc.start()
+        py_steps = [0, 0]
+        for gi, g in enumerate(globs):
+            # the Python Batcher's steps: the 256-entry histo_stat lane
+            # the engine's imported digests drain into
+            orig = g.aggregator.batcher.on_batch
+
+            def on_batch(batch, gi=gi, orig=orig):
+                py_steps[gi] += 1
+                return orig(batch)
+            g.aggregator.batcher.on_batch = on_batch
+        out["setup_s"] = time.perf_counter() - t0
+
+        with _export_log() as exports:
+            # -- interval 1: every unit delivered --------------------------
+            t1 = time.perf_counter()
+            r1 = _forward_round(locs, globs, proxy, rounds[0], "forward 1",
+                                False, exports)
+            out["interval1_s"] = time.perf_counter() - t1
+            with digest_calls() as k2_calls:
+                rows1, walls1 = _flush_globals(globs, "forward 1")
+            out["interval1"] = _check_forward_flush(rows1, oracle1,
+                                                    "forward 1")
+            _check(all(loc._fwd_acked_seq == 0
+                       and len(loc.forward_spill) == 0 for loc in locs),
+                   "forward 1: a local's unit is not acked")
+            # the relay's rate, end to end: what the proxy delivered over
+            # the time from the locals' flushes returning to the globals'
+            # folds (the local's pump, the proxy, the globals' gRPC
+            # receive and their fold)
+            out.update(local_flushes=r1, global_flush_ms=walls1,
+                       pump_to_fold_metrics_per_s=sum(r["delivered"]
+                                                      for r in r1)
+                       / sum(r["flush_to_folded_ms"] - r["flush_ms"]
+                             for r in r1) * 1e3)
+
+            # -- interval 2: g2 fails, every unit held ---------------------
+            base_imports = _imports(globs)
+            base_forwarded = proxy.forwarded
+            FAULTS.arm(PROXY_FORWARD, error=True, match=dests[1])
+            try:
+                r2 = _forward_round(locs, globs, proxy, rounds[1],
+                                    "forward 2", True, exports)
+            finally:
+                FAULTS.reset()
+            _check(all(len(loc.forward_spill.pending_units()) == 1
+                       for loc in locs),
+                   "forward 2: a local does not hold its unit")
+            spill = [_spill_gauge(loc) for loc in locs]
+            _check(min(spill) > 0, f"forward 2: spill_bytes {spill}")
+            _check(len(proxy._inflight) == FORWARD_LOCALS,
+                   f"forward 2: {len(proxy._inflight)} groupings pinned")
+
+            # -- interval 3: the fault cleared, each unit re-sent ----------
+            r3 = _forward_round(locs, globs, proxy, rounds[2], "forward 3",
+                                False, exports)
+            _check(all(loc._fwd_acked_seq == 2
+                       and len(loc.forward_spill) == 0 for loc in locs),
+                   "forward 3: the held units were not acked")
+            _check(not proxy._inflight, "forward 3: groupings left pinned")
+            _check(_imports(globs) - base_imports
+                   == proxy.forwarded - base_forwarded,
+                   "forward 3: the globals folded other than delivered")
+            rows23, _w = _flush_globals(globs, "forward 2-3")
+            out["interval23_counters"] = _held_counters(
+                rows23, oracle23, "forward 2-3")
+            dups = dict(proxy=proxy.dup_suppressed,
+                        globals=[g._c_dup_suppressed.value()
+                                 for g in globs])
+            out.update(fault_flushes=r2, retry_flushes=r3,
+                       spill_bytes=spill, dup_suppressed=dups,
+                       proxy_errors=proxy.errors)
+
+            # -- a restart: the first local's next unit held back ----------
+            loc0 = locs[0]
+            FAULTS.arm(PROXY_FORWARD, error=True, match=dests[1])
+            try:
+                _forward_round([loc0], globs, proxy, [fourth], "forward 4",
+                               True, exports)
+            finally:
+                FAULTS.reset()
+            base = _lines_seen(loc0.aggregator)
+            _send_paced(loc0, _datagrams(tail), "forward tail")
+            _wait_seen(loc0, base, len(tail), "forward tail")
+            # the held unit's seq; the tail's unit takes the next
+            sid, epoch, seq = (loc0._fwd_source_id, loc0._fwd_epoch,
+                               loc0._fwd_next_seq)
+            writes = loc0._c_ckpt_writes.value()
+            live.remove(loc0)
+            loc0.shutdown()
+            _check(loc0._c_ckpt_writes.value() == writes + 1,
+                   "forward: shutdown wrote no tail checkpoint")
+        loc0b = _local_server(device, proxy.port, restore_on_start=True,
+                              **ckpt)
+        fleet.append(loc0b)
+        live.append(loc0b)
+        _count_flushes(loc0b, flushes)
+        fold = {}
+        orig_restore = loc0b._restore_from_checkpoint
+
+        def timed_restore():
+            t_r = time.perf_counter()
+            orig_restore()
+            torch.cuda.synchronize()
+            fold["ms"] = (time.perf_counter() - t_r) * 1e3
+        loc0b._restore_from_checkpoint = timed_restore
+        k1_before = cuda_ingest.launches
+        loc0b.start()
+        restore_steps = loc0b.aggregator.steps_total
+        _check(loc0b._c_ckpt_restores.value() == 1, "forward: no restore")
+        _check(cuda_ingest.launches - k1_before == restore_steps >= 1,
+               f"forward restore: K1 {cuda_ingest.launches - k1_before} "
+               f"launches, {restore_steps} steps")
+        units = [(u.epoch, u.seq)
+                 for u in loc0b.forward_spill.pending_units()]
+        _check((loc0b._fwd_source_id, loc0b._fwd_epoch) == (sid, epoch + 1)
+               and units == [(epoch, seq - 1), (epoch, seq)],
+               f"forward restart: identity {loc0b._fwd_epoch}, units "
+               f"{units} (held seq {seq - 1}, tail seq {seq})")
+        fwd0, imp0 = proxy.forwarded, _imports(globs)
+        with _export_log() as exports_b:
+            _check(loc0b.trigger_flush(timeout=300),
+                   "forward restart: flush")
+        t_b = time.perf_counter()
+        while len(loc0b.forward_spill) or \
+                _imports(globs) - imp0 < proxy.forwarded - fwd0:
+            _check(time.perf_counter() - t_b < 120,
+                   "forward restart: the replay did not land")
+            time.sleep(0.0005)
+        _check(loc0b._fwd_acked_seq == 0 and not proxy._inflight,
+               "forward restart: the replay was not acked")
+        rows_r, _w = _flush_globals(globs, "forward restart")
+        out["restart_counters"] = _held_counters(rows_r, oracle_r,
+                                                 "forward restart")
+        out.update(
+            restore_ms=fold["ms"], restore_steps=restore_steps,
+            replayed_units=units, replay_export_metrics=[
+                e[1] for e in exports_b],
+            global_steps=[g.aggregator.steps_total for g in globs],
+            global_stats_lane_steps=py_steps,
+            local_steps=[s.aggregator.steps_total for s in fleet[2:]],
+            proxy_metrics_by_destination={
+                f"{d} {proto}": n for (d, proto), n
+                in sorted(proxy.metrics_by_destination.items())},
+            dup_suppressed_after_restart=dict(
+                proxy=proxy.dup_suppressed,
+                globals=[g._c_dup_suppressed.value() for g in globs]))
+    finally:
+        FAULTS.reset()
+        for srv in live:
+            srv.shutdown()
+        if proxy is not None:
+            proxy.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the path's launches, the shutdowns' tail flushes included; the
+    # comparison and timing below come after
+    launches = {"fused_ingest": cuda_ingest.launches,
+                "digest_quantiles": cuda_digest.launches}
+    steps = sum(s.aggregator.steps_total for s in fleet)
+    _check(launches["fused_ingest"] == steps,
+           f"forward: K1 {launches['fused_ingest']} launches for {steps} "
+           "ingest steps")
+    _check(launches["digest_quantiles"] == flushes[0] >= 20
+           and cuda_digest.wide_launches == wide0,
+           f"forward: K2 launched {launches['digest_quantiles']} times "
+           f"({cuda_digest.wide_launches - wide0} wide) for {flushes[0]} "
+           "flushes")
+    out.update(launches=launches, flushes=flushes[0],
+               k2=_digest_case(device, k2_calls[0], clock_hz))
     torch.cuda.empty_cache()
     return out
 
@@ -3261,6 +3846,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        # seconds each phase of the script took, printed at the end
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
     card = device_line()
     print("card:", card)
     build_s = build_kernels()
@@ -3280,6 +3873,7 @@ def main() -> int:
     merge = kernel_merge_windows(device, clock_hz)
     print("kernel merge_windows:", json.dumps(merge))
 
+    lap("1-3 build and kernels")
     lines = make_lines(np.random.default_rng(0), 200_000)
     main, main_k2, main_ims = main_path(device, lines)
     print("main path (default widths):", json.dumps(main))
@@ -3292,6 +3886,7 @@ def main() -> int:
           f"(parse + key + stage + ingest, host included), flush "
           f"{main['flush_ms']:.1f} ms")
 
+    lap("4")
     # phase 8, right after phase 4: the same lines on the native path
     nat, udp_ims = native_path(device, lines, main_ims)
     del main_ims
@@ -3308,6 +3903,7 @@ def main() -> int:
         f"{route} {r['samples_per_s']:.0f} samples/s" for route, r in
         nat.items()) + f" (Python path {main['samples_per_s']:.0f})")
 
+    lap("8")
     # phase 9, after phase 8: the Server and the CLI on the card
     srv = server_path(device, lines, udp_ims)
     del udp_ims
@@ -3327,6 +3923,7 @@ def main() -> int:
           f"code {srv['cli']['exit_code']}")
     torch.cuda.empty_cache()
 
+    lap("9")
     big, big_k2 = million_keys(device)
     print("1M-key phase:", json.dumps(big))
     _check(big["launches"]["fused_ingest"] == big["steps"],
@@ -3343,6 +3940,7 @@ def main() -> int:
     del main_k2, big_k2
     torch.cuda.empty_cache()
 
+    lap("5 and 3")
     hist, range_k2, hist_frames = history_path(device, clock_hz)
     print("history path (default ring):", json.dumps(hist))
     print("kernel digest_quantiles (range batch):",
@@ -3361,6 +3959,7 @@ def main() -> int:
 
     # phase 10, after phase 6 (whose ring is freed): the Server with the
     # history, query and watch tiers on
+    lap("6")
     tiers = server_tiers_path(device, hist_frames, clock_hz)
     del hist_frames
     print("server tiers path:", json.dumps(tiers))
@@ -3377,6 +3976,7 @@ def main() -> int:
           f"{tiers['launches']['merge_windows']} on this path")
     torch.cuda.empty_cache()
 
+    lap("10")
     # phase 3, continued: K3's row-index form and the wide-row paths
     merge_idx = kernel_merge_windows_idx(device, clock_hz)
     print("kernel merge_windows, row index:", json.dumps(merge_idx))
@@ -3403,6 +4003,7 @@ def main() -> int:
 
     # phase 11: the global tier (64 locals -> 1 global), its checkpoint
     # and a restart
+    lap("3 and 7")
     glob = global_tier_path(device, clock_hz)
     print("global tier path:", json.dumps(glob))
     gl = glob["launches_phase"]
@@ -3423,6 +4024,30 @@ def main() -> int:
            f"global tier: a kernel was never launched {gl}")
     torch.cuda.empty_cache()
 
+    # phase 12: the forward tier (4 locals -> a proxy -> 2 globals)
+    lap("11")
+    fwd = forward_tier_path(device, clock_hz)
+    print("forward tier path:", json.dumps(fwd))
+    fl = fwd["launches"]
+    lf = fwd["local_flushes"]
+    print(f"forward tier on {card}: local flush "
+          f"{np.median([r['flush_ms'] for r in lf]):.1f} ms median, "
+          f"forward {np.median([r['forward_ms'] for r in lf]):.1f} ms, "
+          f"export_metrics {np.median([r['export_ms'] for r in lf]):.1f} "
+          f"ms for {np.median([r['unit_metrics'] for r in lf]):.0f} metrics "
+          f"({np.median([r['unit_bytes'] for r in lf]):.0f} bytes) a unit; "
+          f"flush to folded on the globals "
+          f"{np.median([r['flush_to_folded_ms'] for r in lf]):.1f} ms; "
+          f"pump to fold {fwd['pump_to_fold_metrics_per_s']:.0f} "
+          f"metrics/s; restore "
+          f"{fwd['restore_ms']:.1f} ms in {fwd['restore_steps']} K1 steps; "
+          f"launches K1 {fl['fused_ingest']}, K2 {fl['digest_quantiles']} "
+          f"({fwd['flushes']} flushes); with every set name forwarded a "
+          f"unit would be {fwd['unit_all_sets_forwarded']['bytes']} bytes "
+          f"({fwd['unit_all_sets_forwarded']['sets']} sets), gRPC's "
+          f"receive cap {4 << 20}")
+    torch.cuda.empty_cache()
+
     src = "veneur_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_ingest", route="cuda",
@@ -3434,7 +4059,8 @@ def main() -> int:
                  "8_udp": nat["udp"]["launches"]["fused_ingest"],
                  "9": srv["launches"]["fused_ingest"],
                  "10": tiers["launches"]["fused_ingest"],
-                 "11": gl["fused_ingest"]},
+                 "11": gl["fused_ingest"],
+                 "12": fl["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None,
@@ -3450,7 +4076,8 @@ def main() -> int:
                  "8_udp": nat["udp"]["launches"]["digest_quantiles"],
                  "9": srv["launches"]["digest_quantiles"],
                  "10": tiers["launches"]["digest_quantiles"],
-                 "11": gl["digest_quantiles"]},
+                 "11": gl["digest_quantiles"],
+                 "12": fl["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
@@ -3485,7 +4112,9 @@ def main() -> int:
              bound_ms=digests_wide[0]["bound_ms"],
              bound_by=digests_wide[0]["bound_by"], library_ms=None),
     ]
-    print(f"build {build_s:.1f} s")
+    lap("12")
+    print(f"build {build_s:.1f} s; seconds by phase:", json.dumps(laps),
+          f"total {sum(laps.values()):.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,10 @@ machine has no JAX.)
   same MetricLists over gRPC (the engine's vi_import, K1 steps) and a
   JSONMetric POST /import flush the same InterMetrics, and the shutdown
   checkpoint restores (K1's two steps) into a card Server and a CPU
-  Server that flush the same tail.
+  Server that flush the same tail;
+- the forward tier on the card against the same tier on the CPU: two
+  local Servers forward exactly once through a ProxyServer to two global
+  Servers, which flush the same InterMetrics and set words.
 """
 
 import time
@@ -990,3 +993,127 @@ def test_global_tier_on_the_card_matches_the_cpu(cuda, tmp_path):
                                            err_msg=g.name)
             else:
                 assert g.value == c.value, g.name
+
+
+class _DropSpans:
+    """A trace backend that drops every span: a Server's own telemetry
+    stays out of its pipeline, so no ingest step boundary moves with
+    thread timing."""
+
+    def send(self, span) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _forward_run(device, datas):
+    """Locals (one per buffer in `datas`) → a proxy → two globals, every
+    Server on `device`, exactly once: each local takes its buffer, flushes
+    and forwards; then both globals flush. Returns the globals' app
+    InterMetrics, sorted by key, and their set words by key."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.forward.discovery import StaticDiscoverer
+    from veneur_tpu_torch.forward.proxysrv import ProxyServer
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    kw = dict(interval="3600s", hostname="f", percentiles=[0.5, 0.99],
+              aggregates=["min", "max", "count", "sum"],
+              statsd_listen_addresses=[], forward_dedup_window=64,
+              tpu_counter_capacity=1 << 12, tpu_gauge_capacity=256,
+              tpu_status_capacity=64, tpu_set_capacity=64,
+              tpu_histo_capacity=256)
+
+    def wait(cond, what):
+        t0 = time.time()
+        while not cond():
+            assert time.time() - t0 < 60, what
+            time.sleep(0.005)
+
+    sinks = [DebugMetricSink(), DebugMetricSink()]
+    globs = [Server(Config(**dict(kw, grpc_address="127.0.0.1:0")),
+                    metric_sinks=[s], device=device) for s in sinks]
+    words = {}
+    for g in globs:
+        g.trace_client.backend = _DropSpans()
+        orig = g.aggregator.compute_flush
+
+        def flush_with_words(state, table, percentiles, want_raw=False,
+                             _orig=orig, **k):
+            res, table, raw = _orig(state, table, percentiles,
+                                    want_raw=True, **k)
+            for i, (_s, m) in enumerate(table.get_meta("set")):
+                words[(m.name, tuple(m.tags))] = np.asarray(raw["hll"][i])
+            return (res, table, raw) if want_raw else (res, table)
+        g.aggregator.compute_flush = flush_with_words
+        g.start()
+    proxy = ProxyServer(StaticDiscoverer(
+        [f"127.0.0.1:{g.grpc_port}" for g in globs]), dedup_window=64)
+    proxy.start("127.0.0.1:0")
+    locs = [Server(Config(**dict(
+        kw, forward_address=f"127.0.0.1:{proxy.port}")), device=device)
+        for _ in datas]
+    try:
+        for loc, data in zip(locs, datas):
+            loc.trace_client.backend = _DropSpans()
+            loc.start()
+            loc.packet_queue.put(data)
+            n = data.count(b"\n") + 1
+            wait(lambda: loc.aggregator.processed >= n, "lines processed")
+            fwd0, imp0 = proxy.forwarded, sum(g.imported_total
+                                              for g in globs)
+            assert loc.trigger_flush(timeout=120)
+            wait(lambda: loc.forward_sends_total == 1
+                 and len(loc.forward_spill) == 0, "unit acked")
+            assert loc.forward_errors == 0
+            wait(lambda: sum(g.imported_total for g in globs) - imp0
+                 == proxy.forwarded - fwd0 > 0, "unit folded")
+        for g in globs:
+            assert g.trigger_flush(timeout=120)
+    finally:
+        for srv in locs + globs:
+            srv.shutdown()
+        proxy.stop()
+    ims = sorted((m for s in sinks for m in s.flushed
+                  if not m.name.startswith("veneur.")
+                  and m.name != "ssf.names_unique"),
+                 key=lambda m: (m.name, tuple(m.tags), m.type))
+    return ims, words
+
+
+def test_forward_tier_on_the_card_matches_the_cpu(cuda):
+    """Locals → proxy → globals: the locals' ingest (K1) and flushes (K2),
+    the globals' imports (K1) and flushes (K2), on the card against the
+    same tier on the CPU."""
+    datas = []
+    for seed in range(2):
+        rng = np.random.default_rng(20 + seed)
+        lines = [b"fc.%d:%d|c|#veneurglobalonly" % (i % 300, 1 + i % 9)
+                 for i in range(900)]
+        lines += [b"fg.%d:%.3f|g|#veneurglobalonly" % (i, rng.normal())
+                  for i in range(60)]
+        lines += [b"ft.%d:%.4f|ms" % (int(rng.zipf(1.3)) % 120,
+                                      rng.lognormal(3.0, 0.5))
+                  for _ in range(3000)]
+        lines += [b"fs.%d:u%d|s" % (i % 30, rng.integers(0, 5000))
+                  for i in range(1500)]
+        datas.append(b"\n".join(lines))
+    cims, cwords = _forward_run("cpu", datas)
+    cuda_ingest.launches = cuda_digest.launches = 0
+    gims, gwords = _forward_run(cuda, datas)
+    assert cuda_ingest.launches >= 4 and cuda_digest.launches >= 4
+    assert [(m.name, m.tags, m.type) for m in gims] == \
+        [(m.name, m.tags, m.type) for m in cims]
+    assert len(gims) > 500
+    assert sorted(gwords) == sorted(cwords) and len(gwords) == 30
+    for key, w in cwords.items():
+        assert np.array_equal(gwords[key], w), key
+    for g, c in zip(gims, cims):
+        if g.name.endswith("percentile"):
+            np.testing.assert_allclose(g.value, c.value, rtol=2e-5,
+                                       atol=2e-5, err_msg=g.name)
+        elif g.name.startswith("fs."):
+            np.testing.assert_allclose(g.value, c.value, rtol=1e-5,
+                                       err_msg=g.name)
+        else:
+            assert g.value == c.value, g.name

@@ -242,6 +242,45 @@ def test_import_flushes_match_jax(route):
     _assert_same_flush(_flush_map(tagg), _flush_map(jagg))
 
 
+# a server's own import timer: the sample its self-telemetry loops back
+# into its pipeline after a fold (veneur.import.response_duration_ns)
+_SELF_TIMER = b"veneur.import.response_duration_ns:1675407|ms|#part:merge"
+
+
+@pytest.mark.parametrize("route", ["native", "python"])
+@pytest.mark.parametrize("after", [0, 1, 2])
+def test_a_self_timer_between_lists_cuts_steps_as_jax_does(route, after):
+    """The same item sequence, with one self-telemetry timer sample
+    between two imported lists, folds to the same flush in both packages:
+    the sample takes a histogram-lane entry and moves every later step
+    boundary (and with them the f32 grouping of each digest's sum) the
+    same way in each, so the sums stay exact."""
+    from veneur_tpu.samplers.parser import parse_metric as jparse
+    from veneur_tpu_torch.samplers.parser import parse_metric as tparse
+    lists = _import_lists()
+    if route == "native":
+        tagg = NativeAggregator(SPEC, BSPEC, device="cpu")
+        jagg = _SyncedJNative(JSPEC, JBSPEC)
+    else:
+        tagg = Aggregator(SPEC, BSPEC, device="cpu")
+        jagg = _SyncedJAggregator(JSPEC, JBSPEC)
+    for i, data in enumerate(lists):
+        if route == "native":
+            assert tagg.import_pb_bytes(data) == jagg.import_pb_bytes(data)
+        else:
+            for m in fpb.MetricList.FromString(data).metrics:
+                tconvert.import_into(tagg, m)
+                jconvert.import_into(jagg, jmpb.Metric.FromString(
+                    m.SerializeToString()))
+        if i == after:
+            tagg.process_metric(tparse(_SELF_TIMER))
+            jagg.process_metric(jparse(_SELF_TIMER))
+    assert tagg.steps_total == jagg.steps_total
+    got, want = _flush_map(tagg), _flush_map(jagg)
+    assert any(k[1] == "veneur.import.response_duration_ns" for k in got)
+    _assert_same_flush(got, want)
+
+
 def test_native_import_matches_python_import():
     ml = _mk_list(np.random.default_rng(11))
     py = Aggregator(SPEC, BSPEC, device="cpu")
@@ -610,6 +649,16 @@ def _post(port, body, ctype="application/json", headers=None):
         return e.code
 
 
+class _DropSpans:
+    """A trace backend that drops every span."""
+
+    def send(self, span) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 @pytest.fixture(scope="module", params=["native", "python"])
 def servers(request):
     kw = dict(SERVER_KW, native_ingest=request.param == "native")
@@ -617,6 +666,15 @@ def servers(request):
     jsrv = _SyncedJServer(jconfig.Config(**kw), metric_sinks=[jsink])
     tsrv = tserver_mod.Server(tconfig.Config(**kw), metric_sinks=[tsink],
                               device="cpu")
+    # A Server's self-telemetry (the import timers of each fold and each
+    # POST) loops back into its own pipeline at a point set by thread
+    # timing, in both packages. A timer sample that lands between two
+    # imported lists takes a histogram-lane entry and moves the later
+    # step boundaries, and with them the f32 grouping of a digest's sum
+    # (test_a_self_timer_between_lists_cuts_steps_as_jax_does). With the
+    # loop-back dropped, both Servers fold the same item sequence.
+    for srv in (jsrv, tsrv):
+        srv.trace_client.backend = _DropSpans()
     jsrv.start()
     tsrv.start()
     try:

@@ -590,8 +590,7 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 # -- (g), (h) what the slice refuses ---------------------------------------------
 
 REFUSED = {
-    "forward_address": "127.0.0.1:9", "forward_spill_max_bytes": 1,
-    "forward_dedup_window": 8, "collective_enabled": True,
+    "collective_enabled": True,
     "collective_attach": "default", "tpu_n_shards": 2,
     "table_grow_enabled": True, "reshard_enabled": True,
     "tag_frequency_enabled": True, "overload_enabled": True,
@@ -610,6 +609,40 @@ def test_keys_outside_the_slice_raise_naming_their_roadmap_item(key, item):
     cfg = tconfig.Config(**dict(SMALL, **{key: REFUSED[key]}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tserver_mod.Server(cfg, device="cpu")
+
+
+# the keys of the forward tier (ROADMAP A6f), which the slice now serves
+LIFTED = {"forward_address": "127.0.0.1:9", "forward_spill_max_bytes": 4096,
+          "forward_dedup_window": 8}
+
+
+@pytest.mark.parametrize("key", sorted(LIFTED))
+def test_forward_keys_build_a_server_that_forwards_spills_or_dedups(key):
+    assert key not in {k for k, _f, _i in tserver_mod.NOT_PORTED}
+    kw = dict(SMALL, statsd_listen_addresses=[], ssf_listen_addresses=[],
+              http_address="", **{key: LIFTED[key]})
+    if key == "forward_dedup_window":
+        kw["forward_address"] = LIFTED["forward_address"]
+    srv = tserver_mod.Server(tconfig.Config(**kw), device="cpu")
+    try:
+        if key == "forward_address":
+            # dialed at start; a flush forwards (and fails, counted)
+            srv.start()
+            assert type(srv._forward_client).__name__ == "ForwardClient"
+            srv.process_span_metrics([tparser.parse_metric(
+                b"fwd.c:1|c|#veneurglobalonly")])
+            assert srv.trigger_flush(timeout=60)
+            _wait(lambda: srv.forward_errors == 1, "forward not attempted")
+        elif key == "forward_spill_max_bytes":
+            assert srv.forward_spill.max_bytes == 4096
+            assert srv._dedup is None and srv._fwd_source_id is None
+        else:
+            # a dedup window, a sender identity and the ack-gating spill
+            assert srv._dedup.window == 8
+            assert len(srv._fwd_source_id) == 32
+            assert srv.forward_spill.max_bytes == 32 << 20
+    finally:
+        srv.shutdown()
 
 
 SINK_KEYS = {

@@ -1,25 +1,51 @@
-"""The exactly-once forwarding envelope: its parse half.
+"""Exactly-once forwarding envelope and the receiver-side dedup window.
 
-A forward unit carries an idempotency key, (source_id, epoch, seq), as
-gRPC metadata, HTTP headers or a wrapped JSON import body:
+The local→proxy→global forward path is at-least-once by construction:
+ambiguous gRPC timeouts re-send, the spill buffer replays across
+restarts, and a crash-restore re-forwards the last checkpointed
+interval. HLL register folds and LWW gauges absorb duplicates, but
+counter accumulators and t-digest centroid weights are ADDITIVE — every
+duplicate fold inflates global counts and quantile weights. The
+transport therefore carries an idempotency key:
 
-  source_id  128-bit hex id of the sending local server.
-  epoch      bumped on every restore/restart of the sender.
-  seq        monotone per (source_id, epoch), one per forward unit.
+    (source_id, epoch, seq)
 
-A receiver parses it here and rejects a malformed one (partial keys, a
-bad source_id, a negative or non-integer epoch/seq, a half-present trace
-context) with EnvelopeError: HTTP 400 / gRPC INVALID_ARGUMENT, counted
-in veneur.forward.envelope_rejected_total, never folded. Zero keys mean
-a legacy sender. The receiver's duplicate window and the sender's
-source-id minting are not ported yet (ROADMAP A6f), so a well-formed
-envelope is parsed, validated and otherwise ignored.
+  source_id  128-bit hex id minted once per local server and persisted
+             in the checkpoint manifest, so a restart keeps its stream.
+  epoch      bumped on EVERY restore/restart. Seqs minted after the
+             last checkpoint are lost with the process; reusing them
+             would make the receiver falsely suppress fresh data, so a
+             restarted sender opens a new epoch instead.
+  seq        monotone per (source_id, epoch), one per forward unit (an
+             interval's exported payload). Retries — ambiguous timeout,
+             spill replay, proxy re-attempt — re-send the SAME seq.
+
+The envelope travels as gRPC metadata / HTTP headers (and optionally a
+wrapped JSON import body), so it survives proxy re-routing: a re-routed
+duplicate is suppressed at whichever global instance folds it.
+
+Receivers keep one DedupWindow per (source_id, epoch) stream: a
+high-water mark plus a bitmap of the last `window` seqs. Semantics:
+
+  seq unseen and within the window        -> fresh (fold it)
+  seq already marked                      -> duplicate (suppress + ACK)
+  seq below high-water - window (stale)   -> conservatively suppressed;
+     the window size bounds how stale a replay can be and still be
+     distinguished — see README §Exactly-once forwarding
+  seq jumping more than max_skip ahead    -> EnvelopeError (rejected;
+     a corrupt or hostile envelope must not wipe the whole bitmap)
+
+Suppressed duplicates are still ACKED (success to the sender) so the
+sender evicts the unit from its spill — a NACK would replay forever.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+import threading
+from collections import OrderedDict
 from typing import Mapping, Optional
 
 SOURCE_ID_LEN = 32          # hex chars (128 bits)
@@ -41,13 +67,22 @@ _META_KEYS = (META_SOURCE_ID, META_EPOCH, META_SEQ)
 # `getrandbits(63) | 1`), so "zero keys" cannot masquerade as a trace.
 META_TRACE_ID = "veneur-trace-id"
 META_PARENT_SPAN_ID = "veneur-parent-span-id"
+_TRACE_KEYS = (META_TRACE_ID, META_PARENT_SPAN_ID)
+
+FRESH = "fresh"
+DUPLICATE = "duplicate"
+STALE = "stale"
 
 
 class EnvelopeError(ValueError):
-    """A malformed envelope: partial metadata, bad source_id, or a
-    negative/non-integer epoch or seq. Receivers REJECT (4xx /
-    INVALID_ARGUMENT) and account in
-    veneur.forward.envelope_rejected_total — never fold."""
+    """A malformed or unacceptable envelope: partial metadata, bad
+    source_id, negative/non-integer epoch or seq, or a seq skip past the
+    dedup window's bound. Receivers REJECT (4xx / INVALID_ARGUMENT) and
+    account in veneur.forward.envelope_rejected_total — never fold."""
+
+
+def mint_source_id() -> str:
+    return os.urandom(SOURCE_ID_LEN // 2).hex()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +193,122 @@ class Envelope:
                                      d.get("parent_span_id"))
         return cls(str(d.get("source_id") or ""), epoch, seq,
                    tid, psid).validate()
+
+
+class DedupWindow:
+    """Bounded per-stream duplicate suppression: for each
+    (source_id, epoch) a high-water mark plus a `window`-bit bitmap of
+    recently seen seqs. Streams are LRU-bounded at `max_sources`; an
+    evicted stream's re-appearance re-opens at its next seq (its old
+    seqs would then read fresh — evictions are counted in
+    veneur.dedup.window_evictions_total so the bound is observable).
+
+    Thread-safe; the import paths call observe() from gRPC worker and
+    HTTP handler threads concurrently."""
+
+    def __init__(self, window: int, max_sources: int = 1024,
+                 max_skip: Optional[int] = None):
+        if window <= 0:
+            raise ValueError("window must be > 0")
+        self.window = int(window)
+        self.max_sources = max(1, int(max_sources))
+        # the acceptance bound on forward jumps: a hostile/corrupt seq
+        # must not be able to slide the high-water mark arbitrarily far
+        # (wiping the bitmap's memory of everything actually folded)
+        self.max_skip = (int(max_skip) if max_skip is not None
+                         else self.window * 64)
+        self._lock = threading.Lock()
+        # (source_id, epoch) -> [high_water, bitmap]; bit k of the
+        # bitmap marks seq (high_water - k), k in [0, window)
+        self._streams: "OrderedDict[tuple, list]" = OrderedDict()
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._streams)
+
+    def _verdict_locked(self, env: Envelope, mark: bool) -> str:
+        key = (env.source_id, env.epoch)
+        st = self._streams.get(key)
+        if st is None:
+            if env.seq > self.max_skip:
+                raise EnvelopeError(
+                    f"seq {env.seq} opens a stream past max skip "
+                    f"{self.max_skip}")
+            if mark:
+                while len(self._streams) >= self.max_sources:
+                    self._streams.popitem(last=False)
+                    self.evictions += 1
+                self._streams[key] = [env.seq, 1]
+            return FRESH
+        self._streams.move_to_end(key)
+        high, bits = st
+        if env.seq > high:
+            skip = env.seq - high
+            if skip > self.max_skip:
+                raise EnvelopeError(
+                    f"seq {env.seq} skips {skip} past high-water {high} "
+                    f"(max {self.max_skip})")
+            if mark:
+                st[0] = env.seq
+                st[1] = ((bits << skip) | 1) & ((1 << self.window) - 1)
+            return FRESH
+        k = high - env.seq
+        if k >= self.window:
+            # below the window: indistinguishable from an already-folded
+            # seq whose bit scrolled off — suppress conservatively (the
+            # documented staleness bound: a replay older than `window`
+            # seqs behind the stream head is dropped, never double-folded)
+            return STALE
+        if bits & (1 << k):
+            return DUPLICATE
+        if mark:
+            st[1] = bits | (1 << k)
+        return FRESH
+
+    def observe(self, env: Envelope) -> str:
+        """Check-and-mark: FRESH (and now marked), DUPLICATE, or STALE.
+        Raises EnvelopeError on an over-bound seq skip."""
+        with self._lock:
+            return self._verdict_locked(env, mark=True)
+
+    def peek(self, env: Envelope) -> str:
+        """Check without marking (the proxy's two-phase use: mark only
+        after every destination delivered)."""
+        with self._lock:
+            return self._verdict_locked(env, mark=False)
+
+    def mark(self, env: Envelope) -> None:
+        with self._lock:
+            self._verdict_locked(env, mark=True)
+
+    # -- checkpoint persistence (persistence/snapshot.py "forward") ---------
+    def snapshot(self) -> dict:
+        """JSON-able state, LRU order preserved (oldest first)."""
+        with self._lock:
+            return {"window": self.window,
+                    "streams": [[sid, epoch, high, format(bits, "x")]
+                                for (sid, epoch), (high, bits)
+                                in self._streams.items()]}
+
+    def restore(self, snap: dict) -> int:
+        """Fold a snapshot()'s streams back in, re-masking bitmaps to
+        THIS window's width (a restore into a smaller window keeps the
+        newest seqs, the conservative end). Returns streams restored."""
+        streams = (snap or {}).get("streams") or []
+        n = 0
+        with self._lock:
+            for entry in streams:
+                try:
+                    sid, epoch, high, bits_hex = entry
+                    high = int(high)
+                    bits = int(str(bits_hex), 16)
+                except (TypeError, ValueError):
+                    continue   # one bad row must not void the rest
+                while len(self._streams) >= self.max_sources:
+                    self._streams.popitem(last=False)
+                    self.evictions += 1
+                self._streams[(str(sid), int(epoch))] = [
+                    high, bits & ((1 << self.window) - 1)]
+                n += 1
+        return n

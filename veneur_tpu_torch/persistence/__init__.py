@@ -19,4 +19,4 @@ from veneur_tpu_torch.persistence.codec import (  # noqa: F401
 from veneur_tpu_torch.persistence.snapshot import build_snapshot  # noqa: F401
 from veneur_tpu_torch.persistence.writer import CheckpointWriter  # noqa: F401
 from veneur_tpu_torch.persistence.restore import (  # noqa: F401
-    fold_snapshot, restore_latest)
+    fold_snapshot, restore_latest, restore_spill)

@@ -158,3 +158,19 @@ def fold_snapshot(aggregator, snap: dict, skip_forwarded: bool = False) -> int:
         n += 1
     aggregator.restore_flush()
     return n
+
+
+def restore_spill(spill_buffer, spill_bytes: bytes) -> int:
+    """Re-seed a configured ForwardSpillBuffer from snapshot bytes,
+    preserving original spill stamps. Entries already past max_age_s
+    re-enter and are counted into dropped_age at the next drain — drop
+    accounting survives the restart, nothing vanishes silently."""
+    if not spill_bytes or spill_buffer is None:
+        return 0
+    from veneur_tpu_torch.reliability.spill import parse_spill_bytes
+    # with_envelope keeps each staged unit's (epoch, seq) attached so the
+    # post-restart replay re-sends the ORIGINAL seqs the receiver's dedup
+    # window knows how to suppress (exactly-once across a crash)
+    entries, _caps = parse_spill_bytes(spill_bytes, with_envelope=True)
+    spill_buffer.restore_entries(entries)
+    return len(entries)

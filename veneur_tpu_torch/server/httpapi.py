@@ -527,7 +527,13 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                 self._reply(400, b"Received empty or improperly-formed "
                                  b"metrics")
                 return
-            server.import_metrics(metrics, envelope=envelope)
+            try:
+                server.import_metrics(metrics, envelope=envelope)
+            except EnvelopeError as e:
+                # the dedup window's skip bound (counted by the server)
+                self._import_error("envelope")
+                self._reply(400, str(e).encode())
+                return
             self._import_timing(self._import_t0, "request")
             self._reply(202, b"imported")
 
@@ -545,7 +551,13 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                 self._import_error("protobuf")
                 self._reply(400, b"bad MetricList protobuf")
                 return
-            server.import_metrics(list(mlist.metrics), envelope=envelope)
+            try:
+                server.import_metrics(list(mlist.metrics),
+                                      envelope=envelope)
+            except EnvelopeError as e:
+                self._import_error("envelope")
+                self._reply(400, str(e).encode())
+                return
             self._import_timing(self._import_t0, "request")
             self._reply(202, b"imported")
 

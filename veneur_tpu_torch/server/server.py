@@ -22,6 +22,13 @@ Maps the reference's Server (server.go:83 struct, :771 Start, :1303 Serve):
   `restore_on_start` folds the newest valid checkpoint (this package's or
   the JAX package's) through the same merge lanes before any listener
   starts, and shutdown writes the unflushed tail.
+- Forwarding (`forward_address`): a local's flush exports its
+  forwardable sketches (export_metrics over the flush's raw gather) and
+  ships them to a global or a proxy over gRPC or HTTP, on an aux thread.
+  With `forward_dedup_window` each interval is staged as an ack-gated
+  unit under a (source_id, epoch, seq) envelope before the checkpoint
+  build, re-sent under the same seq until acked, and a receiver
+  suppresses the duplicates its window has seen (forward/envelope.py).
 
 The device state lives on `device`: the card unless the caller names
 another. The pipeline thread launches the ingest kernel (through the
@@ -54,9 +61,12 @@ from typing import List, Optional
 from veneur_tpu_torch.aggregation.host import BatchSpec
 from veneur_tpu_torch.aggregation.state import TableSpec, resolve_device
 from veneur_tpu_torch.config import Config
+from veneur_tpu_torch.forward.envelope import FRESH, Envelope, EnvelopeError
 from veneur_tpu_torch.query.snapshot import PipelineRequest
 from veneur_tpu_torch.reliability.faults import FAULTS, FLUSH_WORKER
-from veneur_tpu_torch.reliability.policy import CircuitBreaker, RetryPolicy
+from veneur_tpu_torch.reliability.policy import (CircuitBreaker,
+                                                 CircuitOpenError,
+                                                 RetryPolicy)
 from veneur_tpu_torch.samplers import parser
 from veneur_tpu_torch.server.aggregator import Aggregator
 from veneur_tpu_torch.server.flusher import generate_intermetrics
@@ -70,10 +80,6 @@ MAX_UDP_SSF = 65536
 # Config keys whose feature is not ported yet: (key, is it set?, the
 # ROADMAP item that ports it). Each raises NotImplementedError in Server().
 NOT_PORTED = (
-    ("forward_address", lambda c: bool(c.forward_address), "A6f"),
-    ("forward_spill_max_bytes", lambda c: c.forward_spill_max_bytes > 0,
-     "A6f"),
-    ("forward_dedup_window", lambda c: c.forward_dedup_window > 0, "A6f"),
     ("collective_enabled", lambda c: c.collective_enabled, "A7"),
     ("collective_attach", lambda c: bool(c.collective_attach), "A7"),
     ("tpu_n_shards", lambda c: c.tpu_n_shards > 1, "A7"),
@@ -277,10 +283,14 @@ class Server:
         self._flush_trace = bool(cfg.flush_trace_enabled)
         self._register_instruments()
 
+        # (duration_ns, n_metrics) per forward send, success or failure;
+        # guarded by _sink_stats_lock with the other flush telemetry
+        self._forward_stats: list = []
+
         # -- resilience layer (reliability/) ------------------------------
-        # All knobs default off: no policy, no breakers — every egress
-        # path keeps the reference's single-attempt drop-on-failure
-        # behavior byte for byte.
+        # All knobs default off: no policy, no breakers, no spill — every
+        # egress path keeps the reference's single-attempt
+        # drop-on-failure behavior byte for byte.
         from veneur_tpu_torch.utils.hashing import fnv1a_64
         self.retry_policy = None
         if cfg.sink_retry_max > 0:
@@ -294,15 +304,53 @@ class Server:
         # and the sink's own ResilientSink harness so veneur.circuit.state
         # reads a single state machine per destination
         self._sink_breakers: dict = {}      # id(sink) -> CircuitBreaker
+        self._forward_breaker = None
         if cfg.circuit_failure_threshold > 0:
             for s in self.metric_sinks + self.span_sinks:
                 self._sink_breakers[id(s)] = CircuitBreaker(
+                    cfg.circuit_failure_threshold, cfg.circuit_cooldown_s)
+            if cfg.is_local and cfg.forward_address:
+                self._forward_breaker = CircuitBreaker(
                     cfg.circuit_failure_threshold, cfg.circuit_cooldown_s)
         if self.retry_policy is not None or self._sink_breakers:
             for s in self.metric_sinks + self.span_sinks:
                 if isinstance(s, ResilientSink):
                     s.configure_resilience(self.retry_policy,
                                            self._sink_breakers.get(id(s)))
+        self.forward_spill = None
+        if cfg.forward_spill_max_bytes > 0:
+            from veneur_tpu_torch.reliability.spill import ForwardSpillBuffer
+            self.forward_spill = ForwardSpillBuffer(
+                cfg.forward_spill_max_bytes, cfg.forward_spill_max_age_s)
+
+        # -- exactly-once forwarding (forward/envelope.py) -----------------
+        # Off by default (forward_dedup_window == 0): no envelopes, no
+        # dedup state. With a window, this server deduplicates every
+        # enveloped import it receives; a LOCAL with a forward_address
+        # also mints a source identity and ack-gates its spill buffer
+        # (the spill becomes the durable send queue, reliability/spill.py).
+        self._dedup = None
+        self._fwd_source_id = None
+        self._fwd_epoch = 0
+        self._fwd_next_seq = 0
+        self._fwd_acked_seq = -1
+        self._fwd_meta_lock = threading.Lock()
+        self._fwd_send_lock = threading.Lock()
+        if cfg.forward_dedup_window > 0:
+            from veneur_tpu_torch.forward.envelope import (DedupWindow,
+                                                           mint_source_id)
+            self._dedup = DedupWindow(
+                cfg.forward_dedup_window,
+                max_sources=cfg.forward_dedup_max_sources)
+            if cfg.is_local and cfg.forward_address:
+                self._fwd_source_id = mint_source_id()
+                if self.forward_spill is None:
+                    # ack-gating needs the spill as its send queue even
+                    # when the merge-on-retry buffer wasn't configured
+                    from veneur_tpu_torch.reliability.spill import (
+                        ForwardSpillBuffer)
+                    self.forward_spill = ForwardSpillBuffer(
+                        32 << 20, cfg.forward_spill_max_age_s)
 
         # -- TCP statsd hardening -----------------------------------------
         # live-connection accounting for tcp_max_connections; the idle
@@ -348,6 +396,7 @@ class Server:
         self._aux_threads: List[threading.Thread] = []
         self._aux_lock = threading.Lock()
         self._sockets: List[socket.socket] = []
+        self._forward_client = None
         self._grpc_server = None
         self.grpc_port = None
         self._httpd = None
@@ -455,14 +504,16 @@ class Server:
         self._c_imported = M.counter(
             "veneur.import.metrics_total",
             "metrics accepted from the forward/import tier")
-        M.counter("veneur.forward.error_total", "failed forward sends")
-        M.counter("veneur.forward.sends_total", "completed forward sends")
-        M.counter("veneur.forward.retries_total",
-                  "forward send retry attempts")
-        M.counter("veneur.forward.dup_suppressed_total",
-                  "already-folded forward intervals suppressed by the "
-                  "dedup window (duplicates are still acked so senders "
-                  "evict)")
+        self._c_forward_errors = M.counter(
+            "veneur.forward.error_total", "failed forward sends")
+        self._c_forward_sends = M.counter(
+            "veneur.forward.sends_total", "completed forward sends")
+        self._c_forward_retries = M.counter(
+            "veneur.forward.retries_total", "forward send retry attempts")
+        self._c_dup_suppressed = M.counter(
+            "veneur.forward.dup_suppressed_total",
+            "already-folded forward intervals suppressed by the dedup "
+            "window (duplicates are still acked so senders evict)")
         self._c_envelope_rejected = M.counter(
             "veneur.forward.envelope_rejected_total",
             "forward imports rejected for malformed or out-of-bound "
@@ -716,15 +767,35 @@ class Server:
                             if self._ckpt_writer is not None
                             and self._ckpt_writer.last_write_ts else None),
                    help="seconds since the last durable checkpoint")
-        # families of features this package has not ported yet: the
-        # spill and exactly-once forwarding (A6f), overload and tenancy
-        # (A11), table growth (A8)
+        M.callback("veneur.forward.spill_bytes",
+                   lambda: (self.forward_spill.bytes
+                            if self.forward_spill is not None else None),
+                   help="mergeable sketch bytes awaiting re-forward")
+        M.callback("veneur.forward.spill.spilled_total",
+                   lambda: (self.forward_spill.spilled_total
+                            if self.forward_spill is not None else None),
+                   kind="counter",
+                   help="metrics spilled after failed forwards")
+        M.callback("veneur.forward.spill.dropped_total",
+                   lambda: (self.forward_spill.dropped_total
+                            if self.forward_spill is not None else None),
+                   kind="counter",
+                   help="spilled metrics dropped at the cap or max age")
+        M.callback("veneur.forward.acked_seq",
+                   lambda: (float(self._fwd_acked_seq)
+                            if self._fwd_source_id is not None
+                            and self._fwd_acked_seq >= 0 else None),
+                   help="highest sequence number the receiving tier has "
+                        "acked in the current epoch")
+        M.callback("veneur.dedup.window_evictions_total",
+                   lambda: (float(self._dedup.evictions)
+                            if self._dedup is not None else None),
+                   kind="counter",
+                   help="dedup streams evicted at the "
+                        "forward_dedup_max_sources LRU bound")
+        # families of features this package has not ported yet: overload
+        # and tenancy (A11), table growth (A8)
         for name, kind, labels in (
-                ("veneur.forward.spill_bytes", "gauge", ()),
-                ("veneur.forward.spill.spilled_total", "counter", ()),
-                ("veneur.forward.spill.dropped_total", "counter", ()),
-                ("veneur.forward.acked_seq", "gauge", ()),
-                ("veneur.dedup.window_evictions_total", "counter", ()),
                 ("veneur.overload.state", "gauge", ()),
                 ("veneur.overload.pressure", "gauge", ()),
                 ("veneur.overload.shed_total", "counter", ("class",)),
@@ -776,9 +847,12 @@ class Server:
         self._ring_emit_prev = (calls, ns)
 
     def _breaker_list(self):
-        return [(s.name, self._sink_breakers[id(s)])
-                for s in self.metric_sinks + self.span_sinks
-                if id(s) in self._sink_breakers]
+        out = [(s.name, self._sink_breakers[id(s)])
+               for s in self.metric_sinks + self.span_sinks
+               if id(s) in self._sink_breakers]
+        if self._forward_breaker is not None:
+            out.append(("forward", self._forward_breaker))
+        return out
 
     def _collect_circuit_state(self):
         # fold same-named sink instances to the WORST state — duplicate
@@ -800,6 +874,9 @@ class Server:
         with self._sink_stats_lock:
             for name, n in self._fanout_retries.items():
                 totals[name] = totals.get(name, 0) + n
+        fwd = self._c_forward_retries.value()
+        if fwd:
+            totals["forward"] = totals.get("forward", 0) + fwd
         for s in self.metric_sinks + self.span_sinks:
             if isinstance(s, ResilientSink):
                 own = s.reliability_counters()[0]
@@ -1012,6 +1089,7 @@ class Server:
             "dropped": agg.dropped_capacity,
             "import_errors": self.import_errors,
             "imported_total": self.imported_total,
+            "forward_errors": self.forward_errors,
             "internal_errors": self.internal_errors,
             "spans_received": self.span_pipeline.spans_received,
             "span_chan_cap_hits": self.span_pipeline.chan_cap_hits,
@@ -1159,6 +1237,18 @@ class Server:
     @property
     def imported_total(self) -> int:
         return int(self._c_imported.value())
+
+    @property
+    def forward_errors(self) -> int:
+        return int(self._c_forward_errors.value())
+
+    @property
+    def forward_sends_total(self) -> int:
+        return int(self._c_forward_sends.value())
+
+    @property
+    def forward_retries_total(self) -> int:
+        return int(self._c_forward_retries.value())
 
     @property
     def flush_count(self) -> int:
@@ -1560,9 +1650,9 @@ class Server:
             self.http_port = self._httpd.server_address[1]
 
         # global-tier import server (reference importsrv/,
-        # server.go:753-762). The envelope's duplicate window is not
-        # ported (A6f), so the service runs without the metadata contract,
-        # as the JAX Server does with forward_dedup_window 0.
+        # server.go:753-762). With a dedup window the service runs the
+        # exactly-once contract: envelopes parsed from metadata, malformed
+        # ones rejected (INVALID_ARGUMENT).
         if self.cfg.grpc_address:
             from veneur_tpu_torch.forward import rpc
             _, target = resolve_addr(
@@ -1572,7 +1662,28 @@ class Server:
             self._grpc_server, self.grpc_port = rpc.serve(
                 self.import_bytes if native_import else self.import_metrics,
                 f"{target[0]}:{target[1]}", raw=native_import,
+                with_metadata=self._dedup is not None,
                 on_reject=self._c_envelope_rejected.inc)
+        # forwarding client, dialed once at start (server.go:843-851);
+        # http(s):// addresses take the HTTP /import path unless
+        # forward_use_grpc forces gRPC (flusher.go:84-95 dispatch)
+        if self.cfg.forward_address:
+            from veneur_tpu_torch.forward.rpc import (
+                ForwardClient, HTTPForwardClient)
+            addr = self.cfg.forward_address
+            is_http = addr.startswith(("http://", "https://"))
+            if is_http and not self.cfg.forward_use_grpc:
+                # no retry_policy here: _send_forward wraps both client
+                # kinds uniformly (and counts retries)
+                self._forward_client = HTTPForwardClient(addr)
+            else:
+                for prefix in ("http://", "https://", "grpc://", "tcp://"):
+                    if addr.startswith(prefix):
+                        addr = addr[len(prefix):]
+                # with retries configured, queue RPCs while the channel
+                # (re)connects instead of failing fast
+                self._forward_client = ForwardClient(
+                    addr, wait_for_ready=self.cfg.sink_retry_max > 0)
         self._redact_secrets()
 
     _SECRET_FIELDS = (
@@ -1600,12 +1711,34 @@ class Server:
                 {"name": d.get("name", ""), "api_key": "REDACTED"}
                 for d in self.cfg.signalfx_per_tag_api_keys]
 
+    def _dedup_check(self, envelope) -> Optional[bool]:
+        """Exactly-once admission for one enveloped import batch, before
+        the enqueue (which cannot fail). Returns None = fold it (fresh,
+        or dedup/envelope off), True = suppress but ack (already folded,
+        or past the window's staleness bound: acking lets the sender
+        evict; a NACK would replay forever). Raises EnvelopeError
+        (counted) for envelopes the window refuses outright."""
+        if self._dedup is None or envelope is None:
+            return None
+        try:
+            verdict = self._dedup.observe(envelope)
+        except EnvelopeError:
+            self._c_envelope_rejected.inc()
+            raise
+        if verdict == FRESH:
+            return None
+        self._c_dup_suppressed.inc()
+        return True
+
     def import_metrics(self, metrics: List, envelope=None) -> bool:
         """Import entry for parsed metrics (gRPC without the native
         engine, and POST /import): enqueue onto the pipeline thread
         (importsrv/server.go:102 SendMetrics → IngestMetrics). Returns
-        True, the gRPC service's ack: nothing sheds an import here
+        True, the gRPC service's ack, for a folded batch and for a
+        suppressed duplicate alike: nothing sheds an import here
         (overload admission waits for A11)."""
+        if self._dedup_check(envelope):
+            return True
         self.packet_queue.put(_ImportBatch(metrics))
         self._trace_import_absorb(envelope, rows=len(metrics))
         return True
@@ -1613,7 +1746,9 @@ class Server:
     def import_bytes(self, data: bytes, envelope=None) -> bool:
         """Raw-bytes gRPC import entry (native decode path): the pipeline
         thread hands the serialized MetricList straight to the engine's
-        importer."""
+        importer. Same dedup contract as import_metrics."""
+        if self._dedup_check(envelope):
+            return True
         self.packet_queue.put(_ImportBytes(data))
         self._trace_import_absorb(envelope, nbytes=len(data))
         return True
@@ -1737,13 +1872,14 @@ class Server:
 
         dev_t0 = time.perf_counter_ns()
         sp = stage("device_update")
-        # a due checkpoint rides the flush's raw sketch outputs: the same
-        # want_raw gather in the flush's own copy, no checkpoint-only read
+        # a due checkpoint rides the forward path's raw sketch outputs:
+        # the same want_raw gather in the flush's own host copy, no
+        # checkpoint-only read
         ckpt_due = (self._ckpt_writer is not None
                     and self._flushes_since_ckpt + 1
                     >= max(1, self.cfg.checkpoint_interval_flushes))
         raw = None
-        if ckpt_due:
+        if self._forward_client is not None or ckpt_due:
             flush_arrays, table, raw = agg.compute_flush(
                 state, table, self.cfg.percentiles, want_raw=True,
                 history=self.history)
@@ -1767,12 +1903,30 @@ class Server:
                         and self.history.armed else None)
             self.watch_engine.offer(
                 state, table, int(stats.get("set_shift", 0)), ts, hist_seq)
+        # exactly-once forwarding: export + stage this interval's unit
+        # under a fresh (epoch, seq) BEFORE the checkpoint build, so the
+        # snapshot's spill chunk carries the payload with its envelope
+        # (_stage_forward_unit explains the crash-replay invariant)
+        if self._fwd_source_id is not None and raw is not None:
+            self._stage_forward_unit(raw, table)
         if self._ckpt_writer is not None:
             if ckpt_due:
                 self._checkpoint_interval(agg, flush_arrays, table, raw, ts)
                 self._flushes_since_ckpt = 0
             else:
                 self._flushes_since_ckpt += 1
+        if self._forward_client is not None:
+            # fire-and-forget, concurrent with sink flushes
+            # (flusher.go:84-95); the forward logs and counts its own
+            # errors, and the flush thread never blocks on a slow global
+            # tier. Both read only the host copy of `raw`.
+            fsp = stage("forward")
+            if self._fwd_source_id is not None:
+                # ack-gated: the interval was staged above; the pump
+                # re-sends every pending unit under its original envelope
+                self._spawn_aux(self._pump_traced, fsp)
+            else:
+                self._spawn_aux(self._forward_traced, fsp, raw, table)
 
         if self.cfg.count_unique_timeseries:
             from veneur_tpu_torch.server.flusher import unique_timeseries
@@ -1894,12 +2048,20 @@ class Server:
 
     # -- durability (persistence/) ------------------------------------------
     def _build_snapshot(self, agg, flush_arrays, table, raw, ts) -> dict:
-        """The checkpoint snapshot of one flushed interval, with the watch
-        and history sidecars. `agg` owns the interval and its spec."""
+        """The checkpoint snapshot of one flushed interval, with the
+        spill, forward, watch and history sidecars. `agg` owns the
+        interval and its spec. The spill is read here, after the
+        interval's unit was staged and before any send drains it."""
         from veneur_tpu_torch.persistence import build_snapshot
+        spill_bytes, spill_n = None, 0
+        if self.forward_spill is not None:
+            spill_bytes = self.forward_spill.to_bytes()
+            spill_n = len(self.forward_spill)
         return build_snapshot(
             agg.spec, table, flush_arrays, raw, agg_kind="single",
             n_shards=1, interval_ts=ts, hostname=self.hostname,
+            spill=spill_bytes, spill_entries=spill_n,
+            forward_meta=self._forward_meta_snapshot(),
             watches=self._watch_snapshot(),
             history=self._history_snapshot())
 
@@ -1933,15 +2095,55 @@ class Server:
             return None
         return self.history.snapshot()
 
+    def _forward_meta_snapshot(self) -> Optional[dict]:
+        """Exactly-once forwarding state for the checkpoint: the sender
+        identity (source_id + epoch + next seq) and/or this receiver's
+        dedup window. None (chunk omitted) when the feature is off."""
+        if self._fwd_source_id is None and self._dedup is None:
+            return None
+        meta: dict = {}
+        if self._fwd_source_id is not None:
+            with self._fwd_meta_lock:
+                meta.update({"source_id": self._fwd_source_id,
+                             "epoch": self._fwd_epoch,
+                             "next_seq": self._fwd_next_seq})
+        if self._dedup is not None:
+            meta["dedup"] = self._dedup.snapshot()
+        return meta
+
+    def _restore_forward_meta(self, meta: dict) -> None:
+        """Adopt a checkpoint's forwarding identity. The epoch bumps by
+        one with seq reset: seqs minted after the checkpoint died with
+        the process, and reusing them for new data would make the
+        receiver suppress it as duplicates. Spill units restored
+        alongside keep their original old-epoch envelopes: replays of
+        possibly-folded payloads, which the receiver's window for the
+        old epoch suppresses."""
+        try:
+            sid = str(meta.get("source_id") or "")
+            if self._fwd_source_id is not None and sid:
+                Envelope(sid, int(meta.get("epoch", 0)), 0).validate()
+                with self._fwd_meta_lock:
+                    self._fwd_source_id = sid
+                    self._fwd_epoch = int(meta.get("epoch", 0)) + 1
+                    self._fwd_next_seq = 0
+                    self._fwd_acked_seq = -1
+            if self._dedup is not None and meta.get("dedup"):
+                self._dedup.restore(meta["dedup"])
+        except (EnvelopeError, TypeError, ValueError) as e:
+            log.warning("ignoring malformed forward metadata in "
+                        "checkpoint: %s", e)
+
     def _restore_from_checkpoint(self) -> None:
         """Fold the newest valid snapshot into the live aggregator.
         Corrupt snapshots are quarantined and counted inside
         restore_latest; any other failure cold-starts: a bad checkpoint
-        must never keep the server from serving. The spill, forward,
-        tenant and key-table sidecars of a JAX checkpoint belong to
-        features not ported yet (A6f, A11, A8) and are not read."""
+        must never keep the server from serving. The tenant and
+        key-table sidecars of a JAX checkpoint belong to features not
+        ported yet (A11, A8) and are not read."""
         from veneur_tpu_torch.persistence import (fold_snapshot,
-                                                  restore_latest)
+                                                  restore_latest,
+                                                  restore_spill)
         try:
             found = restore_latest(self.cfg.checkpoint_dir,
                                    on_corrupt=self._c_ckpt_corrupt.inc)
@@ -1950,7 +2152,23 @@ class Server:
                          self.cfg.checkpoint_dir)
                 return
             snap, path = found
-            n = fold_snapshot(self.aggregator, snap)
+            fwd_meta = snap.get("forward") or None
+            # skip re-folding forward-only rows iff their payloads travel
+            # by the spill replay instead: an exactly-once sender staged
+            # the export before the checkpoint, so the spill chunk holds
+            # those rows under their envelopes, and this server replays
+            # that spill. Folding them too would re-export the same data
+            # under a fresh seq the receiver cannot correlate.
+            skip_fwd = (fwd_meta is not None
+                        and fwd_meta.get("source_id")
+                        and self._fwd_source_id is not None
+                        and self.forward_spill is not None)
+            n = fold_snapshot(self.aggregator, snap,
+                              skip_forwarded=bool(skip_fwd))
+            if self.forward_spill is not None and snap.get("spill"):
+                restore_spill(self.forward_spill, snap["spill"])
+            if fwd_meta:
+                self._restore_forward_meta(fwd_meta)
             if snap.get("watches") and self.watch_engine is not None:
                 # monitors keep their debounce streaks and ALERT holds
                 self.watch_engine.restore(snap["watches"])
@@ -1963,6 +2181,210 @@ class Server:
                      n, path, snap["interval_ts"])
         except Exception:
             log.exception("checkpoint restore failed; cold start")
+
+    # -- forwarding (forward/; README §Exactly-once forwarding) -------------
+    def _forward_traced(self, span, raw, table):
+        try:
+            self._forward(raw, table, span=span)
+        finally:
+            span.client_finish(self.trace_client)
+
+    def _pump_traced(self, span):
+        try:
+            self._pump_forward_units(span=span)
+        finally:
+            span.client_finish(self.trace_client)
+
+    def _next_envelope(self) -> Envelope:
+        with self._fwd_meta_lock:
+            seq = self._fwd_next_seq
+            self._fwd_next_seq += 1
+            return Envelope(self._fwd_source_id, self._fwd_epoch, seq)
+
+    def _stage_forward_unit(self, raw, table) -> None:
+        """Export this interval's forwardable sketches and stage them as
+        an immutable ack-gated unit under a fresh (epoch, seq), on the
+        flush worker before the checkpoint build and the send.
+
+        That order is the crash-exactly-once invariant: every
+        checkpoint's forward-eligible rows are inside its spill chunk
+        with their envelope, so a crash-restore replays the same bytes
+        under the same seq (which the receiver's dedup window can
+        suppress), while fold_snapshot(skip_forwarded=True) keeps those
+        rows from re-exporting under a fresh seq it could not.
+
+        Legacy (unenveloped) spill entries, restored from a checkpoint of
+        a dedup-off run, fold into this unit so they travel enveloped."""
+        from veneur_tpu_torch.forward.convert import export_metrics
+        try:
+            fresh = export_metrics(
+                raw, table, compression=self.aggregator.spec.compression,
+                hll_precision=self.aggregator.spec.hll_precision)
+            legacy = [m for _, m in self.forward_spill.take_legacy()]
+            if legacy:
+                log.info("forward: folding %d legacy spilled payloads "
+                         "into this interval's unit", len(legacy))
+                fresh = legacy + fresh
+            if fresh:
+                env = self._next_envelope()
+                self.forward_spill.add_unit(fresh, env.epoch, env.seq)
+        except Exception:
+            # a failed export degrades forwarding for this interval,
+            # never the flush (errors surface at the pump)
+            self._c_forward_errors.inc()
+            log.exception("forward export/staging failed; interval not "
+                          "staged")
+
+    def _pump_forward_units(self, span=None) -> None:
+        """Send every staged unit oldest-first; a successful send is the
+        receiver's ack for that seq (the RPC or 202 returns only after
+        the import was admitted, or recognized as a duplicate, which is
+        acked too), so the unit is evicted. A failed or ambiguous send
+        leaves the unit in place: the next interval's pump re-sends the
+        same bytes under the same seq.
+
+        Single-flight (non-blocking lock): a slow failing pump may
+        overlap the next interval's, and a second concurrent pump would
+        re-send units already in flight."""
+        if not self._fwd_send_lock.acquire(blocking=False):
+            return
+        t0 = time.perf_counter_ns()
+        n_metrics = 0
+        try:
+            if (self._forward_breaker is not None
+                    and not self._forward_breaker.allow()):
+                raise CircuitOpenError("forward: circuit open")
+            for unit in self.forward_spill.pending_units():
+                # trace context rides the envelope so the receiving
+                # tier's absorb span parents onto this flush's forward
+                # span; untraced (span=None) is wire-identical to a
+                # legacy sender
+                env = Envelope(self._fwd_source_id, unit.epoch, unit.seq,
+                               trace_id=(span.trace_id
+                                         if span is not None else None),
+                               parent_span_id=(span.id
+                                               if span is not None
+                                               else None))
+                n_metrics += len(unit.metrics)
+                self._send_forward(unit.metrics, span, envelope=env)
+                self.forward_spill.ack(unit.epoch, unit.seq)
+                with self._fwd_meta_lock:
+                    if (unit.epoch == self._fwd_epoch
+                            and unit.seq > self._fwd_acked_seq):
+                        self._fwd_acked_seq = unit.seq
+                if self._forward_breaker is not None:
+                    self._forward_breaker.record_success()
+                self._c_forward_sends.inc()
+        except Exception as e:
+            if (self._forward_breaker is not None
+                    and not isinstance(e, CircuitOpenError)):
+                self._forward_breaker.record_failure()
+            # no spill mutation here: the unsent units (the one that just
+            # failed included) stay staged under their seqs
+            self._c_forward_errors.inc()
+            if span is not None:
+                span.error = True
+            log.warning("forward failed: %s", e)
+        finally:
+            dur_ns = time.perf_counter_ns() - t0
+            self._t_flush_phase.observe(dur_ns, phase="forward")
+            if span is not None and self._flush_trace:
+                span.set_tag("rows", str(n_metrics))
+            with self._sink_stats_lock:
+                self._forward_stats.append((dur_ns, n_metrics))
+            self._fwd_send_lock.release()
+
+    def _forward(self, raw, table, span=None):
+        """Serialize and ship forwardable sketch state without envelopes
+        (flusher.go:474 forwardGRPC). Errors are counted, never fatal
+        (flusher.go:512-524); with a spill buffer, a failed interval's
+        payload merges into the next interval's send."""
+        from veneur_tpu_torch.forward.convert import export_metrics
+        t0 = time.perf_counter_ns()
+        n_metrics = 0
+        fresh = []
+        spilled = []
+        try:
+            fresh = export_metrics(
+                raw, table, compression=self.aggregator.spec.compression,
+                hll_precision=self.aggregator.spec.hll_precision)
+            n_metrics = len(fresh)
+            if fresh or (self.forward_spill is not None
+                         and len(self.forward_spill)):
+                # breaker gate before the spill drain: while the circuit
+                # is open, buffered payloads stay put and only this
+                # interval's batch joins them in the except arm below
+                if (self._forward_breaker is not None
+                        and not self._forward_breaker.allow()):
+                    raise CircuitOpenError("forward: circuit open")
+                if self.forward_spill is not None:
+                    # (spilled_at, metric) pairs of failed intervals ride
+                    # ahead of this interval's batch; the global tier
+                    # merges by key
+                    spilled = self.forward_spill.drain()
+                    if spilled:
+                        log.info("forward: merging %d spilled payloads "
+                                 "into this batch", len(spilled))
+                metrics = [m for _, m in spilled] + fresh
+                n_metrics = len(metrics)
+                if metrics:
+                    self._send_forward(metrics, span)
+                    if self._forward_breaker is not None:
+                        self._forward_breaker.record_success()
+                    self._c_forward_sends.inc()
+        except Exception as e:
+            if (self._forward_breaker is not None
+                    and not isinstance(e, CircuitOpenError)):
+                self._forward_breaker.record_failure()
+            if self.forward_spill is not None:
+                # re-failed spilled entries keep their original stamps
+                # (readd first: they are oldest), so max_age_s bounds
+                # total staleness
+                self.forward_spill.readd(spilled)
+                self.forward_spill.add(fresh)
+            self._c_forward_errors.inc()
+            if span is not None:
+                span.error = True
+            log.warning("forward failed: %s", e)
+        finally:
+            # recorded on failure too: a timed-out send shows as a
+            # latency spike, not as an absent metric
+            dur_ns = time.perf_counter_ns() - t0
+            self._t_flush_phase.observe(dur_ns, phase="forward")
+            if span is not None and self._flush_trace:
+                span.set_tag("rows", str(n_metrics))
+            with self._sink_stats_lock:
+                self._forward_stats.append((dur_ns, n_metrics))
+
+    def _send_forward(self, metrics, span, envelope=None) -> None:
+        """One forward send under the retry policy (clients that carry
+        their own policy are not wrapped twice). Every retry re-sends
+        the same envelope: an ambiguous failure (DEADLINE_EXCEEDED or
+        CANCELLED, rpc.AmbiguousResultError) may have folded at the
+        receiver, and only a same-seq re-send lets its dedup window
+        suppress the duplicate. The envelope is passed only when set,
+        so clients with the legacy send_metrics signature work."""
+        kw = {}
+        if envelope is not None:
+            kw["envelope"] = envelope
+
+        def once():
+            self._forward_client.send_metrics(
+                metrics, timeout=self.interval, parent_span=span,
+                trace_client=self.trace_client, **kw)
+
+        if (self.retry_policy is None
+                or getattr(self._forward_client, "retry_policy", None)
+                is not None):
+            once()
+            return
+
+        def on_retry(attempt, exc, delay):
+            self._c_forward_retries.inc()
+            log.warning("forward attempt %d failed: %s; retrying in "
+                        "%.3fs", attempt + 1, exc, delay)
+
+        self.retry_policy.run(once, on_retry=on_retry)
 
     def _report_self_metrics(self, n_flushed: int, flush_seconds: float,
                              stats: dict, final=None):
@@ -1989,6 +2411,9 @@ class Server:
                # import server and the worker-level alias
                "veneur.worker.metrics_imported_total":
                    stats.get("imported_total", 0),
+               # untagged here; the log line carries the cause
+               "veneur.forward.error_total":
+                   stats.get("forward_errors", 0),
                "veneur.flush.intervals_deferred_total":
                    stats["intervals_deferred"],
                "veneur.flush.sink_flushes_skipped_total":
@@ -2029,8 +2454,9 @@ class Server:
             self._unique_ts = None
         # README §Monitoring names operators alert on:
         # worker.metrics_flushed_total by metric_type (unique name-tag-
-        # type combos this interval) and flush.error_total for sink POST
-        # errors
+        # type combos this interval), forward.duration_ns +
+        # forward.post_metrics_total per send, flush.error_total for
+        # sink POST errors
         if final is not None and len(final):
             from collections import Counter
 
@@ -2058,6 +2484,13 @@ class Server:
                 samples.append(ssf_samples.count(
                     "veneur.ssf.spans.root.received_total", n_root,
                     dict(tags, veneurglobalonly="true")))
+        with self._sink_stats_lock:
+            fstats, self._forward_stats = self._forward_stats, []
+        for dur_ns, n_metrics in fstats:
+            samples.append(ssf_samples.timing(
+                "veneur.forward.duration_ns", dur_ns / 1e9))
+            samples.append(ssf_samples.count(
+                "veneur.forward.post_metrics_total", n_metrics))
         # per-metric-sink conventions, measured centrally by the fan-out
         # (sinks/sinks.go:11-24; the previous interval's threads that
         # outlived the barrier settle into the NEXT interval's report)
@@ -2360,7 +2793,9 @@ class Server:
         # a flush, synchronously and newest, so a graceful restart
         # restores only the tail (flushed intervals already left through
         # the sinks; restoring them too would double-count the additive
-        # kinds downstream)
+        # kinds downstream). With forward_dedup_window > 0 the tail's
+        # export is staged as an ack-gated unit first, so the restart
+        # replays it once under its original (source_id, epoch, seq).
         if self._ckpt_writer is not None:
             if self.cfg.checkpoint_on_shutdown:
                 # a periodic snapshot still waiting for the writer thread
@@ -2372,6 +2807,13 @@ class Server:
                     flush_arrays, table, raw = agg.compute_flush(
                         state, table, self.cfg.percentiles, want_raw=True,
                         history=self.history)
+                    # stage the tail's forward payload before the spill
+                    # is serialized: the tail snapshot then carries the
+                    # unit with its envelope, and fold_snapshot(
+                    # skip_forwarded) keeps its rows from re-exporting
+                    # under a second seq
+                    if self._fwd_source_id is not None:
+                        self._stage_forward_unit(raw, table)
                     self._ckpt_writer.write_sync(self._build_snapshot(
                         agg, flush_arrays, table, raw, int(time.time())))
                 except Exception:
@@ -2382,6 +2824,10 @@ class Server:
             aux = list(self._aux_threads)
         for t in aux:
             t.join(timeout=30.0)
+        # the forward client closes only after the aux forward threads
+        # using it have drained
+        if self._forward_client is not None:
+            self._forward_client.close()
         for t in self._threads:
             t.join(timeout=2.0)
         # quiesce the card: every launch the joined threads enqueued must
