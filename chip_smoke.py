@@ -218,6 +218,58 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    from the locals' pump to the globals' fold, the globals' import and
    stats-lane steps, the restore's ms and steps and the phase's
    launches, which the kernels line carries.
+13. (run after phase 12) the Server under pressure, every Server on the
+   card through its normal entry points:
+   a. overload and tenancy, BASELINE config 15 (benchmarks/e2e.py
+   config15_tenant_storm) at the default widths: two reader rings,
+   tenant fairness (fair rate 2,000/s, burst x3), quarantine at 3,500
+   keys (decay 0.25, readmit 0.5), native admission, a 0.05 s poll and
+   0.3 s hold, shed_priority_tags [tier:gold], the query tier and a
+   checkpoint. benchmarks/replay.py at seed 150,150 (numpy only): steady
+   10,000 and diurnal 4,000 datagrams, then, with SHEDDING forced
+   through the controller's signal source, a flash crowd of 20,000 (acme
+   ~5x its share), each key's datagrams on one ring through
+   rings_inject. That flush holds blue's, dex's and default's keys to
+   the oracle of their lines (counters exact, gauges the last write,
+   p50 within 6% and p99 within 1% for >= 24 samples, sets within 5%
+   for >= 20 members): they shed nothing, acme is throttled. Then 3,000
+   more and 200 tier:gold lines; forced CRITICAL: /readyz 503 (and at
+   SHEDDING; 200 again once HEALTHY, /healthz 200 throughout), POST
+   /query and POST /import 503; the flush publishes only veneur.* and
+   tier:gold rows, counts the rest in shed_total{class=flush}, and
+   multiplies its set estimates by 2^set_shift. crux's tag explosion
+   (5,000 fresh names) demotes it; 250 more count exactly 250 demoted
+   rows. A restart from the shutdown checkpoint keeps crux quarantined
+   with its row totals; decay readmits it within 4 flushes. Per tenant,
+   sent == admitted + shed exactly across both Servers; K1 launches are
+   the step rows (a two-ring step is two), K2 launches in every flush
+   with histogram rows.
+   b. key-table growth, BASELINE config 6 (config6_cardinality_stress)
+   at scale 0.1: 1,000,000 names (600k counters, 250k gauges, 100k
+   timers, 50k sets), counters from 2^17 slots, the other kinds at
+   config 6's 1.25x headroom, its batch widths. The cardinality march
+   grows the counter table at three flushes to 2^20: the first interval
+   overshoots, and its drops must equal its over-capacity attempts
+   exactly; every other counter flushes its exact sum; then the whole
+   population in one interval (every value exact). A tail left
+   unflushed goes to the shutdown checkpoint; the restart adopts the
+   grown capacities (the "keytables" chunk) before the fold and
+   flushes the tail's values (timer quantiles: the gap is reported,
+   ROADMAP C-5). Gates: drop fraction under 1%, veneur.table.grows_total
+   and veneur.table.capacity, K1 launches equal the steps, K2 in every
+   flush. Reports each grow swap's ingest_drain ms beside a plain
+   swap's, per key swapped.
+   c. K1 past 32-bit offsets (ROADMAP C-8): at set_capacity 2^20 (p =
+   14, 12.9 GB of HLL words) and at histo_capacity 4,600,000 (x 472
+   cells), the main path's batch with its set and histogram slots at
+   the tables' top rows, byte-exact against the plain version run on a
+   copy of the state on the card, timed as phase 3 times K1; each state
+   freed before the next. The kernels line carries them as
+   fused_ingest's `grown_offsets`, and phase 13's launches.
+
+With `--k1-ab TREE ...` the script instead times K1 at the default
+shape in each source tree in turn (phase 3's kernel_ingest, a process
+each), to compare two commits on one card in one call.
 
 The last two lines of output are one JSON object listing each kernel,
 then {"ok": true, "device": {...}}.
@@ -3829,6 +3881,778 @@ def wide_widths(device, lines) -> dict:
     return out
 
 
+# -- phase 13: the Server under pressure ----------------------------------------
+
+P13_SEED = 150_150              # config 15's replay seed
+P13_STEADY, P13_DIURNAL, P13_FLASH, P13_POST = 10_000, 4_000, 20_000, 3_000
+P13_Q_MAX = 3_500               # above any steady tenant's key count
+P13_EXPLODE = P13_Q_MAX + 1_500
+P13_EXACT_K = 250
+P13_GOLD = 200                  # shed_priority_tags lines in interval 3
+P13_GOLD_TAG = "tier:gold"
+P13_ISOLATED = ("blue", "dex", "default")
+P13_NOISY, P13_RUNAWAY = "acme", "crux"
+P13_RINGS = 2
+
+
+def _http_code(port: int, path: str, body: bytes = None,
+               ctype: str = "application/json") -> int:
+    """The status code of one GET (or POST with `body`)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+
+
+def _wait_for(cond, what: str, timeout_s: float = 30.0,
+              poll_s: float = 0.005) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        _check(time.perf_counter() - t0 < timeout_s,
+               f"{what} after {timeout_s:.0f} s")
+        time.sleep(poll_s)
+
+
+def _ring_of(gram: bytes) -> int:
+    """Each key's datagrams ride one ring, so its order is fixed."""
+    return sum(gram.split(b":", 1)[0]) % P13_RINGS
+
+
+def _inject_rings(srv, grams) -> None:
+    """Through the rings' admission boundary (rings_inject): a full ring
+    answers INJECT_BACKPRESSURE and counts nothing, so the retry is
+    exact."""
+    from veneur_tpu_torch.native import INJECT_BACKPRESSURE
+    eng = srv.aggregator.eng
+    for i, g in enumerate(grams):
+        while eng.rings_inject(_ring_of(g), g) == INJECT_BACKPRESSURE:
+            time.sleep(0.0005)
+        if (i & 0xFFF) == 0xFFF:
+            while srv.aggregator.reader_counters()["ring_depth"] > 16_000:
+                time.sleep(0.001)
+
+
+def _tenant_totals(ten) -> tuple:
+    return ({t: n for (t,), n in ten.admitted_snapshot()},
+            {t: n for (t,), n in ten.shed_snapshot()})
+
+
+def _settle_tenants(srv, sent: dict, label: str) -> None:
+    """Until every datagram sent is in the tenant ledger (admitted or
+    shed, folded from both rings by the overload poller), the rings are
+    empty and their workers have parsed every admitted line; then one
+    more fold, which carries the demoted rows counted at the parse."""
+    total = sum(sent.values())
+
+    def folded():
+        adm, shd = _tenant_totals(srv.tenancy)
+        return sum(adm.values()) + sum(shd.values())
+    _wait_for(lambda: folded() >= total, f"{label}: tenant ledger short")
+    _check(folded() == total, f"{label}: ledger {folded()} != sent {total}")
+    agg = srv.aggregator
+    last = [-1]
+
+    def parsed():
+        # empty rings, and no line parsed in the last 50 ms
+        if agg.reader_counters()["ring_depth"]:
+            return False
+        now = _lines_seen(agg)
+        done, last[0] = now == last[0], now
+        return done
+    _wait_for(parsed, f"{label}: rings not drained", poll_s=0.05)
+    srv._sync_native_admission(srv._overload)
+
+
+class _FlushProbe:
+    """Wraps the compute_flush of a Server's aggregator (again after a
+    grow installs a new one): captures each call's (res, table) and
+    checks that K2 launched in every flush that has histogram rows, read
+    before any timing harness runs."""
+
+    def __init__(self, srv, label: str):
+        self.calls, self.label = [], label
+        self.wrap(srv)
+
+    def wrap(self, srv) -> None:
+        from veneur_tpu_torch.ops import cuda_digest
+        agg = srv.aggregator
+        if getattr(agg, "_p13_probe", None) is self:
+            return
+        orig = agg.compute_flush
+        label = self.label
+
+        def probe(state, table, percentiles, **kw):
+            k0 = cuda_digest.launches
+            out = orig(state, table, percentiles, **kw)
+            if table.get_meta("histogram"):
+                _check(cuda_digest.launches > k0,
+                       f"{label}: a flush with histogram rows launched no "
+                       "K2")
+            self.calls.append((out[0], out[1]))
+            return out
+        agg.compute_flush = probe
+        agg._p13_probe = self
+
+    def flush(self, srv, what: str):
+        self.wrap(srv)
+        n = len(self.calls)
+        _check(srv.trigger_flush(timeout=300),
+               f"{self.label}: {what} flush failed")
+        _check(len(self.calls) == n + 1,
+               f"{self.label}: {what}: {len(self.calls) - n} compute_flush "
+               "calls")
+        return self.calls[-1]
+
+
+class _TenantTable:
+    """A flush's key table and rows restricted to the isolated tenants'
+    keys (replay.<tenant>.*): what _check_tenant_flush holds to the
+    oracle of their lines."""
+
+    ROWS = _AppTable.ROWS
+
+    def __init__(self, res, table, tenants):
+        prefixes = tuple(f"replay.{t}." for t in tenants)
+        self.metas, self.res = {}, {}
+        for kind, keys in self.ROWS.items():
+            metas = table.get_meta(kind)
+            keep = [i for i, (_s, m) in enumerate(metas)
+                    if m.name.startswith(prefixes)]
+            self.metas[kind] = [metas[i] for i in keep]
+            for key in keys:
+                self.res[key] = np.asarray(res[key])[keep]
+
+    def get_meta(self, kind):
+        return self.metas[kind]
+
+
+def _check_tenant_flush(res, table, lines, label) -> dict:
+    """The isolated tenants' keys against the f64 oracle of their lines:
+    counters exact, gauges the last write, timer p50 within 6% and p99
+    within 1% for keys with >= 24 samples, set estimates within 5% for
+    keys with >= 20 members (the tenants' sets are small: the linear-
+    counting range, where the estimate is near exact)."""
+    t = _TenantTable(res, table, P13_ISOLATED)
+    counters, gauges, timers, sets = _oracle(lines)
+
+    def rows(kind):
+        return [(m.name, m.joined_tags or "") for _s, m in t.get_meta(kind)]
+    for kind, want, key in (("counter", counters, "counter"),
+                            ("gauge", gauges, "gauge")):
+        keys = rows(kind)
+        _check(sorted(keys) == sorted(want),
+               f"{label}: {kind} keys differ from the lines'")
+        got = np.asarray(t.res[key], np.float64)
+        _check(np.array_equal(got, [want[k] for k in keys]),
+               f"{label}: {kind} values differ from the f64 oracle")
+    h_keys = rows("histogram")
+    _check(sorted(h_keys) == sorted(timers), f"{label}: timer keys")
+    hq = np.asarray(t.res["histo_quantiles"])
+    worst, checked = {0.5: 0.0, 0.99: 0.0}, 0
+    for i, k in enumerate(h_keys):
+        if len(timers[k]) < 24:
+            continue
+        checked += 1
+        for qi, q, tol in ((0, 0.5, 0.06), (2, 0.99, 0.01)):
+            exact = float(midpoint_quantile_rows(
+                np.asarray([timers[k]]), q)[0])
+            rel = float(abs(hq[i, qi] - exact) / max(abs(exact), 1e-9))
+            worst[q] = max(worst[q], rel)
+            _check(rel < tol, f"{label}: {k} p{int(q * 100)} off by "
+                   f"{rel:.4f}")
+    _check(checked >= 4, f"{label}: {checked} timer keys checked")
+    s_keys = rows("set")
+    _check(sorted(s_keys) == sorted(sets), f"{label}: set keys")
+    est = np.asarray(t.res["set_estimate"], np.float64)
+    n = np.asarray([len(sets[k]) for k in s_keys], np.float64)
+    big = n >= 20
+    rel = np.abs(est[big] - n[big]) / n[big]
+    _check(big.sum() >= 1 and (rel < 0.05).all(),
+           f"{label}: set estimates off by {rel.max(initial=0):.4f}")
+    return dict(counters=len(rows("counter")), gauges=len(rows("gauge")),
+                timers=len(h_keys), sets=len(s_keys),
+                quantile_keys_checked=checked, worst_p50_rel=worst[0.5],
+                worst_p99_rel=worst[0.99],
+                worst_set_rel=float(rel.max(initial=0.0)))
+
+
+def _p13a_server(device, ckpt: str, **kw):
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    sink = DebugMetricSink()
+    srv = Server(_server_config(
+        profile_capture_enabled=False, reader_rings=P13_RINGS,
+        num_readers=1, query_enabled=True, tenant_enabled=True,
+        tenant_fair_rate=P13_FLASH / 10.0, tenant_fair_burst_mult=3.0,
+        tenant_quarantine_max_keys=P13_Q_MAX, tenant_quarantine_decay=0.25,
+        tenant_quarantine_readmit_frac=0.5, overload_enabled=True,
+        overload_native_admission=True, overload_poll_interval_s=0.05,
+        overload_hold_s=0.3, shed_priority_tags=[P13_GOLD_TAG],
+        checkpoint_dir=ckpt, checkpoint_interval_flushes=100_000,
+        checkpoint_on_shutdown=True, **kw), metric_sinks=[sink],
+        device=device)
+    ring_steps = [0]
+    agg = srv.aggregator
+    emit = agg._emit_rings
+
+    def counted():
+        stepped = emit()
+        ring_steps[0] += stepped
+        return stepped
+    agg._emit_rings = counted
+    srv.start()
+    srv._overload._signals = lambda: {}
+    return srv, sink, ring_steps
+
+
+def _force_state(srv, pressure: float, want: int, label: str) -> None:
+    ov = srv._overload
+    ov._signals = (lambda: {"forced": pressure}) if pressure else (
+        lambda: {})
+    _wait_for(lambda: ov.state == want, f"{label}: overload state "
+              f"{ov.state_name}, want {want}", 15.0)
+
+
+def _k1_expected(srv, ring_steps) -> int:
+    """K1 launches a Server's steps make: one a step, and one more for
+    each further ring row of a ring step (packed_rings_core)."""
+    return srv.aggregator.steps_total + (P13_RINGS - 1) * ring_steps[0]
+
+
+def pressure_path(device) -> dict:
+    """Phase 13a: overload and tenancy, BASELINE config 15 at the default
+    widths (see the module docstring)."""
+    import shutil
+    import tempfile
+    from benchmarks.replay import ReplayGenerator
+    from veneur_tpu_torch.forward.jsonmetric import to_json_metrics
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+    from veneur_tpu_torch.proto import metricpb_pb2 as mpb
+    from veneur_tpu_torch.reliability.overload import (CRITICAL, HEALTHY,
+                                                       SHEDDING)
+    from veneur_tpu_torch.server.flusher import generate_intermetrics
+
+    label = "phase 13a"
+    gen = ReplayGenerator(P13_SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    out, k1_want = {}, 0
+    cuda_ingest.launches = cuda_digest.launches = 0
+    srv = None
+    try:
+        srv, sink, rsteps = _p13a_server(device, tmp)
+        port = srv.http_port
+        probe = _FlushProbe(srv, label)
+        codes = {"healthz": set()}
+
+        def health():
+            codes["healthz"].add(_http_code(port, "/healthz"))
+            return _http_code(port, "/readyz")
+        _check(health() == 200, f"{label}: /readyz not 200 when healthy")
+        # interval 2: steady and diurnal traffic, then the flash crowd
+        # under forced SHEDDING
+        t0 = time.perf_counter()
+        grams = gen.steady(P13_STEADY) + gen.diurnal(P13_DIURNAL)
+        _inject_rings(srv, grams)
+        _force_state(srv, 0.90, SHEDDING, label)
+        _check(health() == 503, f"{label}: /readyz not 503 at SHEDDING")
+        _wait_for(lambda: srv.aggregator.pending_set_shift > 0,
+                  f"{label}: the poller pushed no set shift")
+        flash = gen.flash_crowd(P13_FLASH)
+        _inject_rings(srv, flash)
+        grams += flash
+        _settle_tenants(srv, gen.ledger(), label)
+        inject_s = time.perf_counter() - t0
+        adm, shd = _tenant_totals(srv.tenancy)
+        _check(all(shd.get(t, 0) == 0 for t in P13_ISOLATED),
+               f"{label}: an isolated tenant was shed: {shd}")
+        _check(shd.get(P13_NOISY, 0) > 0, f"{label}: the noisy tenant was "
+               "not throttled")
+        res, table = probe.flush(srv, "flash interval")
+        iso = [g for g in grams if any(
+            g.startswith(f"replay.{t}.".encode()) for t in P13_ISOLATED)]
+        out["isolated"] = _check_tenant_flush(res, table, iso, label)
+        # interval 3: the post segment and priority lines (blue's), then
+        # CRITICAL: query and import shed, the flush protected and its
+        # set estimates corrected by 2^shift (latched at the last swap)
+        gold = [b"p13.gold.c%d:%d|c|#%s,tenant:blue" % (
+                    i % 20, i + 1, P13_GOLD_TAG.encode())
+                for i in range(P13_GOLD // 2)]
+        gold += [b"p13.gold.s%d:u%d|s|#%s,tenant:blue" % (
+                     i % 2, i, P13_GOLD_TAG.encode())
+                 for i in range(P13_GOLD // 2)]
+        sent_extra = {"blue": len(gold)}
+        post = gen.steady(P13_POST)
+        _inject_rings(srv, post + gold)
+        ledger = gen.ledger()
+        ledger["blue"] += sent_extra["blue"]
+        _settle_tenants(srv, ledger, label)
+        shift = srv.aggregator.active_set_shift
+        _force_state(srv, 0.99, CRITICAL, label)
+        _check(health() == 503, f"{label}: /readyz not 503 at CRITICAL")
+        q0 = srv._c_query_shed.value()
+        code_q = _http_code(port, "/query", json.dumps(
+            {"name": "p13.gold.c1"}).encode())
+        m = mpb.Metric(name="p13.imported", type=mpb.Counter,
+                       scope=mpb.Global)
+        m.counter.value = 1
+        code_i = _http_code(port, "/import",
+                            json.dumps(to_json_metrics([m])).encode())
+        _check((code_q, code_i) == (503, 503)
+               and srv._c_query_shed.value() == q0 + 1,
+               f"{label}: at CRITICAL query {code_q}, import {code_i}")
+        ov = srv._overload
+        flush_shed0 = ov.shed.get("flush", 0)
+        sink.flushed.clear()
+        res, table = probe.flush(srv, "CRITICAL")
+        app = _app_ims(sink)
+        _check(app and all(any(P13_GOLD_TAG in t for t in m.tags)
+                           for m in app),
+               f"{label}: the CRITICAL flush published non-priority rows")
+        rows = generate_intermetrics(
+            res, table, percentiles=srv.cfg.percentiles,
+            aggregates=srv.cfg.aggregates, is_local=srv.cfg.is_local,
+            timestamp=0, hostname=srv.hostname)
+        withheld = sum(1 for r in rows if not r.name.startswith("veneur.")
+                       and not any(P13_GOLD_TAG in t for t in r.tags))
+        _check(ov.shed.get("flush", 0) - flush_shed0 == withheld > 0,
+               f"{label}: shed_total{{class=flush}} "
+               f"{ov.shed.get('flush', 0) - flush_shed0}, withheld "
+               f"{withheld}")
+        est = {m.name: float(v) for (_s, m), v in zip(
+            table.get_meta("set"), res["set_estimate"])}
+        gold_sets = [m for m in app if m.name.startswith("p13.gold.s")]
+        _check(shift > 0 and len(gold_sets) == 2 and all(
+            m.value == est[m.name] * (1 << shift) for m in gold_sets),
+            f"{label}: degraded set estimates lack the 2^{shift} correction")
+        out["critical"] = dict(withheld_rows=withheld, set_shift=shift,
+                               published_rows=len(app))
+        # recovery: /readyz 200 again once the controller steps down
+        _force_state(srv, 0.0, HEALTHY, label)
+        _check(health() == 200, f"{label}: /readyz not 200 after recovery")
+        # quarantine: the runaway tenant's explosion, then exactly K rows
+        _inject_rings(srv, gen.tag_explosion(P13_EXPLODE, P13_RUNAWAY))
+        ledger = gen.ledger()
+        ledger["blue"] += sent_extra["blue"]
+        _settle_tenants(srv, ledger, label)
+        _check(srv.aggregator.tenant_table()[P13_RUNAWAY]["demoted"],
+               f"{label}: {P13_RUNAWAY} not demoted")
+        rows0 = dict(srv.tenancy.demoted_rows_snapshot())
+        _inject_rings(srv, gen.tag_explosion(P13_EXACT_K, P13_RUNAWAY))
+        ledger = gen.ledger()
+        ledger["blue"] += sent_extra["blue"]
+        _settle_tenants(srv, ledger, label)
+        rows1 = dict(srv.tenancy.demoted_rows_snapshot())
+        k_rows = rows1.get((P13_RUNAWAY,), 0) - rows0.get((P13_RUNAWAY,), 0)
+        _check(k_rows == P13_EXACT_K, f"{label}: {k_rows} post-demotion "
+               f"rows counted, want {P13_EXACT_K}")
+        _check(all(n == 0 or t == P13_RUNAWAY for (t,), n in rows1.items()),
+               f"{label}: a steady tenant was demoted: {rows1}")
+        _check(codes["healthz"] == {200},
+               f"{label}: /healthz answered {codes['healthz']}")
+        # restart: the shutdown checkpoint carries the tenants chunk
+        srv.shutdown()
+        k1_want += _k1_expected(srv, rsteps)
+        adm1, shd1 = _tenant_totals(srv.tenancy)
+        rows_b1 = dict(srv.tenancy.demoted_rows_snapshot())
+        old, srv = srv, None
+        srv, sink, rsteps = _p13a_server(device, tmp, restore_on_start=True)
+        probe = _FlushProbe(srv, label)
+        _check(srv.aggregator.tenant_table()[P13_RUNAWAY]["demoted"]
+               and dict(srv.tenancy.demoted_rows_snapshot()) == rows_b1,
+               f"{label}: quarantine did not survive the restart")
+        post = gen.steady(P13_POST)
+        _inject_rings(srv, post)
+        sent2 = {t: n - adm1.get(t, 0) - shd1.get(t, 0)
+                 for t, n in gen.ledger().items()}
+        sent2["blue"] += sent_extra["blue"]
+        _settle_tenants(srv, sent2, label)
+        readmitted = None
+        for i in range(4):
+            probe.flush(srv, f"decay {i}")
+            if not srv.aggregator.tenant_table()[P13_RUNAWAY]["demoted"]:
+                readmitted = i + 1
+                break
+        _check(readmitted is not None, f"{label}: decay never readmitted "
+               f"{P13_RUNAWAY}")
+        srv.shutdown()
+        k1_want += _k1_expected(srv, rsteps)
+        adm2, shd2 = _tenant_totals(srv.tenancy)
+        ledger = gen.ledger()
+        ledger["blue"] += sent_extra["blue"]
+        _check(all(n == adm1.get(t, 0) + shd1.get(t, 0) + adm2.get(t, 0)
+                   + shd2.get(t, 0) for t, n in ledger.items()),
+               f"{label}: sent != admitted + shed across the restart")
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches}
+        _check(launches["fused_ingest"] == k1_want,
+               f"{label}: K1 {launches['fused_ingest']} launches for "
+               f"{k1_want} step rows")
+        srv = None
+        out.update(
+            seed=P13_SEED, datagrams=sum(ledger.values()),
+            inject_s=inject_s, sent=ledger,
+            admitted={t: adm1.get(t, 0) + adm2.get(t, 0) for t in ledger},
+            shed={t: shd1.get(t, 0) + shd2.get(t, 0) for t in ledger},
+            readmitted_after_flushes=readmitted,
+            demoted_rows={t: n for (t,), n in rows_b1.items()},
+            launches=launches,
+            healthz=sorted(codes["healthz"]),
+            ring_steps=rsteps[0], transitions=len(old._overload.transitions))
+        return out
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _p13b_mix(names: int) -> dict:
+    """Config 6's mix at `names` live names: 60% counters, 25% gauges,
+    10% timers, 5% sets, and the counters' first capacity (~1/8 of
+    them, a power of two)."""
+    n_c, n_g, n_t = int(names * 0.60), int(names * 0.25), int(names * 0.10)
+    mix = dict(counter=n_c, gauge=n_g, timer=n_t,
+               set=names - n_c - n_g - n_t)
+    mix["cap_c0"] = 1 << max(12, (n_c // 8).bit_length())
+    return mix
+
+
+def _p13b_payloads(mix: dict) -> dict:
+    """Config 6's payloads by kind, 200 lines each."""
+    fmt = {"counter": b"c%d:1|c", "gauge": b"g%d:0.5|g",
+           "timer": b"t%d:3.25|ms", "set": b"s%d:u%d|s"}
+    out = {}
+    for kind, f in fmt.items():
+        lines = [f % ((i, i) if kind == "set" else i)
+                 for i in range(mix[kind])]
+        out[kind] = [b"\n".join(lines[k:k + 200])
+                     for k in range(0, len(lines), 200)]
+    return out
+
+
+_P13B_NAME = {"counter": "c", "gauge": "g", "timer": "t", "set": "s"}
+
+
+def _p13b_app(rows: dict) -> dict:
+    """The flush rows of the phase's own names (c<i>, g<i>, t<i>, s<i>),
+    not the server's self-telemetry."""
+    return {k: v for k, v in rows.items()
+            if k[1][:1] == _P13B_NAME[k[0]] and k[1][1:].isdigit()}
+
+
+def _p13b_server(device, mix: dict, ckpt: str, **kw):
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.blackhole import BlackholeMetricSink
+    srv = Server(_server_config(
+        profile_capture_enabled=False, statsd_listen_addresses=[],
+        http_address="", table_grow_enabled=True,
+        table_max_capacity=max(1 << 24, 4 * mix["counter"]),
+        tpu_counter_capacity=mix["cap_c0"],
+        # the static kinds carry config 6's headroom: the 85% high-water
+        # mark never grows them
+        tpu_gauge_capacity=int(mix["gauge"] * 1.25) + 64,
+        tpu_set_capacity=int(mix["set"] * 1.25) + 64,
+        tpu_histo_capacity=int(mix["timer"] * 1.25) + 64,
+        tpu_status_capacity=64, tpu_batch_counter=1 << 16,
+        tpu_batch_gauge=1 << 15, tpu_batch_set=1 << 14,
+        tpu_batch_histo=1 << 14, tpu_compact_every=8, checkpoint_dir=ckpt,
+        checkpoint_interval_flushes=100_000, checkpoint_on_shutdown=True,
+        **kw), metric_sinks=[BlackholeMetricSink()], device=device)
+    srv.start()
+    return srv
+
+
+def _feed_queue(srv, payloads, label: str) -> None:
+    base = _lines_seen(srv.aggregator)
+    for p in payloads:
+        srv.packet_queue.put(p)
+    n = 200 * len(payloads)
+    _wait_for(lambda: _lines_seen(srv.aggregator) - base >= n,
+              f"{label}: {n} lines not parsed", 300.0, 0.002)
+
+
+def _rows_by_key(res, table) -> dict:
+    """{(kind, name, joined tags): value} of a flush: counters, gauges,
+    set estimates and each timer's quantiles."""
+    out = {}
+    for kind, key in (("counter", "counter"), ("gauge", "gauge"),
+                      ("set", "set_estimate")):
+        for (_s, m), v in zip(table.get_meta(kind), res[key]):
+            out[(kind, m.name, m.joined_tags or "")] = float(v)
+    for (_s, m), qs in zip(table.get_meta("histogram"),
+                           res["histo_quantiles"]):
+        out[("timer", m.name, m.joined_tags or "")] = tuple(
+            float(q) for q in qs)
+    return out
+
+
+def _table_keys(table) -> int:
+    return sum(len(table.get_meta(k))
+               for k in ("counter", "gauge", "set", "histogram"))
+
+
+def growth_path(device, names: int = 1_000_000) -> dict:
+    """Phase 13b: key-table growth, BASELINE config 6 at scale 0.1 (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+
+    label = "phase 13b"
+    mix = _p13b_mix(names)
+    t0 = time.perf_counter()
+    by_kind = _p13b_payloads(mix)
+    payloads = [p for kind in ("counter", "gauge", "timer", "set")
+                for p in by_kind[kind]]
+    counters = by_kind["counter"]
+    out = dict(mix=mix, payloads_s=time.perf_counter() - t0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13b_")
+    cuda_ingest.launches = cuda_digest.launches = 0
+    srv = _p13b_server(device, mix, tmp)
+    k1_want = 0
+    try:
+        probe = _FlushProbe(srv, label)
+        cap = srv.aggregator.spec.counter_capacity
+        _check(cap == mix["cap_c0"], f"{label}: capacity {cap}")
+        # the cardinality march: each step feeds a prefix sized against
+        # the current capacity, then flushes; the manager doubles the
+        # counter table at that swap. Only the first step overshoots the
+        # slots, so every drop is one of its over-capacity attempts.
+        attempts, overshoot, t_march = 0, None, time.perf_counter()
+        pauses, pause_keys = [], []
+        while cap * 0.85 < mix["counter"] + 64:
+            if overshoot is None:
+                k = min(int(cap * 1.10), mix["counter"]) // 200
+                overshoot = max(0, k * 200 - cap)
+            else:
+                k = min(int(cap * 0.97), mix["counter"]) // 200
+            k = min(k, len(counters))
+            _feed_queue(srv, counters[:k], label)
+            attempts += k * 200
+            res, table = probe.flush(srv, f"march at {cap}")
+            c = {key[1]: v for key, v in _p13b_app(_rows_by_key(
+                res, table)).items() if key[0] == "counter"}
+            # every counter that was not dropped flushes its exact sum
+            _check(len(c) == min(k * 200, cap)
+                   and all(v == 1.0 for v in c.values()),
+                   f"{label}: the interval at capacity {cap} flushed "
+                   f"{len(c)} counters, not all exact")
+            newcap = srv.aggregator.spec.counter_capacity
+            if newcap == cap:
+                break
+            pauses.append(srv.tables.last_grow_swap_ns / 1e6)
+            pause_keys.append(_table_keys(table))
+            cap = newcap
+        _check(cap * 0.85 >= mix["counter"] + 64,
+               f"{label}: the march stalled at capacity {cap}")
+        dropped = srv.aggregator.dropped_capacity
+        _check(dropped == overshoot, f"{label}: {dropped} counters dropped, "
+               f"{overshoot} over-capacity attempts")
+        march_s = time.perf_counter() - t_march
+        grows = dict(srv.metrics.get("veneur.table.grows_total").samples())
+        caps = dict(srv.metrics.get("veneur.table.capacity").samples())
+        _check(grows.get(("counter",), 0) >= 1
+               and caps.get(("counter",)) == cap,
+               f"{label}: telemetry grows {grows}, capacity {caps}")
+        # one pass over the whole population at the grown capacity
+        before = _phase_sums(srv)
+        t1 = time.perf_counter()
+        _feed_queue(srv, payloads, label)
+        feed_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res, table = probe.flush(srv, "full population")
+        flush_ms = (time.perf_counter() - t1) * 1e3
+        drain_ms = (_phase_sums(srv).get("ingest_drain", 0.0)
+                    - before.get("ingest_drain", 0.0)) / 1e6
+        drain_keys = _table_keys(table)
+        app = _p13b_app(_rows_by_key(res, table))
+        n_app = {kind: sum(1 for k in app if k[0] == kind)
+                 for kind in ("counter", "gauge", "timer", "set")}
+        _check(n_app == {k: mix[k] for k in n_app},
+               f"{label}: the full flush holds {n_app}")
+        _check(all(app[("counter", f"c{i}", "")] == 1.0
+                   for i in range(mix["counter"]))
+               and all(app[("gauge", f"g{i}", "")] == 0.5
+                       for i in range(mix["gauge"]))
+               and all(v == (3.25,) * len(PERCENTILES)
+                       for k, v in app.items() if k[0] == "timer")
+               and all(abs(v - 1.0) < 0.05 for k, v in app.items()
+                       if k[0] == "set"),
+               f"{label}: the full flush's values are not exact")
+        _check(srv.aggregator.dropped_capacity == dropped,
+               f"{label}: the grown tables dropped keys")
+        # the tail, left unflushed for the shutdown checkpoint: ~4% of the
+        # population, each kind's first names (a restore's host staging
+        # costs ~0.07 ms a key)
+        tail = [p for kind, frac in (("counter", 24), ("gauge", 48),
+                                     ("timer", 20), ("set", 20))
+                for p in by_kind[kind][:max(1, len(by_kind[kind]) // frac)]]
+        _feed_queue(srv, tail, label)
+        probe.wrap(srv)
+        n_calls = len(probe.calls)
+        srv.shutdown()
+        _check(len(probe.calls) == n_calls + 1,
+               f"{label}: shutdown made no tail flush")
+        tail_rows = _rows_by_key(*probe.calls[-1])
+        k1_want += srv.aggregator.steps_total
+        total = attempts + 200 * (len(payloads) + len(tail))
+        srv = None
+        # the restart adopts the grown capacities before the fold
+        t1 = time.perf_counter()
+        srv = _p13b_server(device, mix, tmp, restore_on_start=True)
+        restore_s = time.perf_counter() - t1
+        _check(srv.aggregator.spec.counter_capacity == cap
+               and srv.tables.grows_snapshot()
+               and srv.aggregator.steps_total >= 1,
+               f"{label}: the restart did not adopt capacity {cap}")
+        restore_steps = srv.aggregator.steps_total
+        probe = _FlushProbe(srv, label)
+        got = _rows_by_key(*probe.flush(srv, "restored"))
+        got = {k: v for k, v in got.items() if k in tail_rows}
+        _check(sorted(got) == sorted(tail_rows),
+               f"{label}: the restored flush holds {len(got)} of the "
+               f"tail's {len(tail_rows)} keys")
+        gap = 0.0
+        for k, want in tail_rows.items():
+            if k[0] == "timer":
+                gap = max(gap, max(abs(a - b) / max(abs(b), 1e-9)
+                                   for a, b in zip(got[k], want)))
+            else:
+                _check(got[k] == want, f"{label}: restored {k} {got[k]} "
+                       f"!= {want}")
+        srv.shutdown()
+        k1_want += srv.aggregator.steps_total
+        srv = None
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches}
+        _check(launches["fused_ingest"] == k1_want,
+               f"{label}: K1 {launches['fused_ingest']} launches for "
+               f"{k1_want} steps")
+        frac = dropped / total
+        _check(frac < 0.01, f"{label}: drop fraction {frac:.5f}")
+        out.update(
+            counter_capacity=[mix["cap_c0"], cap],
+            grows={lv[0]: n for lv, n in grows.items()},
+            attempts=total, dropped=dropped, drop_fraction=frac,
+            grow_pause_ms=pauses, grow_swap_keys=pause_keys,
+            plain_swap_ingest_drain_ms=drain_ms, plain_swap_keys=drain_keys,
+            # a swap's ingest_drain is mostly the finalize of its
+            # interval's keys: per key, a grow swap against a plain one
+            grow_swap_us_per_key=[1e3 * p / max(k, 1)
+                                  for p, k in zip(pauses, pause_keys)],
+            plain_swap_us_per_key=1e3 * drain_ms / max(drain_keys, 1),
+            march_s=march_s, feed_s=feed_s,
+            feed_lines_per_s=200 * len(payloads) / feed_s,
+            full_flush_ms=flush_ms, tail_keys=len(tail_rows),
+            restore_s=restore_s, restore_steps=restore_steps,
+            restored_quantile_gap=gap, launches=launches)
+        return out
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _offsets_case(device, clock_hz, spec, label) -> dict:
+    """K1 on a table whose rows x width pass 2^31 (C-8): the main path's
+    batch with its set and histogram slots mirrored to the table's top
+    rows (the Zipf-hot ones last), through the kernel on one state and
+    the plain version on a copy of it on the card, every leaf
+    byte-compared; timed as phase 3 times K1."""
+    import torch
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.aggregation.state import empty_state
+    from veneur_tpu_torch.aggregation.state import DeviceState
+    from veneur_tpu_torch.aggregation.step import Batch, build_streams
+    from veneur_tpu_torch.ops import cuda_ingest
+
+    bspec = BatchSpec()
+    b = _main_path_batch(np.random.default_rng(13), spec, bspec)
+    b = b._replace(set_slot=(spec.set_capacity - 1 - b.set_slot
+                             ).astype(np.int32),
+                   histo_slot=(spec.histo_capacity - 1 - b.histo_slot
+                               ).astype(np.int32))
+    state = empty_state(spec, device)
+    streams = build_streams(state, Batch(*(
+        None if a is None else torch.from_numpy(a).to(device) for a in b)),
+        spec)
+    plain = DeviceState(*(t.clone() for t in state))
+    cuda_ingest.fused_ingest(state, streams, spec)
+    cuda_ingest.fused_ingest_plain(plain, streams, spec)
+    torch.cuda.synchronize()
+    for name in cuda_ingest.STATE_LEAVES:
+        _check(torch.equal(getattr(state, name), getattr(plain, name)),
+               f"{label}: fused_ingest leaf {name} differs from the plain "
+               "version")
+    del plain
+    top = {"set": int(streams.s_slot[streams.s_slot < cuda_ingest.BIG]
+                      .max()) * spec.hll_words,
+           "histogram": int(streams.h_slot[streams.h_slot < cuda_ingest.BIG]
+                            .max()) * spec.total_cells}
+
+    def run():
+        cuda_ingest.fused_ingest(state, streams, spec)
+    ms = _time_ms(run, device, 50)
+    device_ms = _device_ms(run, 50, clock_hz)
+    plain_ms = _time_ms(lambda: cuda_ingest.fused_ingest_plain(
+        state, streams, spec), device, 1, warmup=1)
+    nbytes, ops = _ingest_work(streams, spec)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    chain = max(_max_run(streams.c_slot), _max_run(streams.h_slot))
+    chain_ms = chain * 4 / clock_hz * 1e3
+    if chain_ms > bound_ms:
+        bound_ms, bound_by = chain_ms, "operations"
+    state_gb = sum(t.numel() * t.element_size() for t in state) / 1e9
+    del state, streams
+    torch.cuda.empty_cache()
+    return dict(shape=label, max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                state_gb=state_gb, top_offset=top, bytes=nbytes, ops=ops)
+
+
+def wide_offsets(device, clock_hz) -> list:
+    """Phase 13c: K1 at set_capacity 2^20 (p = 14: 12.9 GB of HLL words)
+    and at histo_capacity 4,600,000 (x 472 cells: past 2^31), each state
+    freed before the next is allocated."""
+    import dataclasses
+    base = _default_spec()
+    return [_offsets_case(device, clock_hz, dataclasses.replace(
+                base, set_capacity=1 << 20), "set_capacity 1048576"),
+            _offsets_case(device, clock_hz, dataclasses.replace(
+                base, histo_capacity=4_600_000), "histo_capacity 4600000")]
+
+
+def k1_ab(trees) -> None:
+    """K1 at the default shape (phase 3's kernel_ingest: a warm default
+    table, the main path's Zipf batch and the hot batch, each held
+    byte-exact to the plain version) in each source tree in turn, each
+    in a process of its own that builds that tree's kernels. Run as
+
+        python3 chip_smoke.py --k1-ab OLD_TREE . . OLD_TREE
+
+    to compare two commits on one card in one call."""
+    code = ("import json, torch, chip_smoke as cs\n"
+            "cs.build_kernels()\n"
+            "r = cs.kernel_ingest(torch.device('cuda'), cs.sm_clock_hz())\n"
+            "print('K1AB ' + json.dumps(dict(ms=r['ms'], "
+            "device_ms=r['device_ms'], checks_ms=r['checks_ms'], "
+            "hot_ms=r['hot']['ms'], hot_device_ms=r['hot']['device_ms'], "
+            "max_abs_err=r['max_abs_err'])))\n")
+    for tree in trees:
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True, timeout=600)
+        _check(res.returncode == 0, f"k1 in {tree}: {res.stderr[-2000:]}")
+        line = [x for x in res.stdout.splitlines() if x.startswith("K1AB ")]
+        _check(len(line) == 1, f"k1 in {tree}: no result")
+        print(f"k1 default shape, tree {tree}:", line[0][5:])
+
+
 def main() -> int:
     try:
         import torch
@@ -3845,6 +4669,10 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--k1-ab"]:
+        print("card:", device_line())
+        k1_ab(sys.argv[2:])
+        return 0
     device = torch.device("cuda")
     laps = {}
     t_lap = [time.perf_counter()]
@@ -4048,6 +4876,36 @@ def main() -> int:
           f"receive cap {4 << 20}")
     torch.cuda.empty_cache()
 
+    # phase 13: the Server under pressure (overload and tenancy, table
+    # growth), then K1 past 32-bit offsets
+    lap("12")
+    press = pressure_path(device)
+    print("pressure path (config 15):", json.dumps(press))
+    torch.cuda.empty_cache()
+    grow = growth_path(device)
+    print("growth path (config 6 at scale 0.1):", json.dumps(grow))
+    torch.cuda.empty_cache()
+    p13 = {k: press["launches"][k] + grow["launches"][k]
+           for k in ("fused_ingest", "digest_quantiles")}
+    offsets = wide_offsets(device, clock_hz)
+    for o in offsets:
+        print("kernel fused_ingest, 64-bit offsets (C-8):", json.dumps(o))
+    print(f"pressure path on {card}: {press['datagrams']} datagrams "
+          f"({press['inject_s']:.1f} s to inject and settle the first "
+          f"{P13_STEADY + P13_DIURNAL + P13_FLASH}), {P13_NOISY} shed "
+          f"{press['shed'][P13_NOISY]}, isolated tenants shed none; "
+          f"CRITICAL withheld {press['critical']['withheld_rows']} rows; "
+          f"{P13_RUNAWAY} readmitted after "
+          f"{press['readmitted_after_flushes']} flushes. Growth: counters "
+          f"{grow['counter_capacity'][0]} -> {grow['counter_capacity'][1]} "
+          f"in {len(grow['grow_pause_ms'])} grow swaps (ingest_drain "
+          f"{', '.join(f'{x:.1f}' for x in grow['grow_pause_ms'])} ms; a "
+          f"plain swap {grow['plain_swap_ingest_drain_ms']:.1f} ms), drop "
+          f"fraction {grow['drop_fraction']:.5f}, full flush "
+          f"{grow['full_flush_ms']:.0f} ms; K1 {p13['fused_ingest']} "
+          f"launches, K2 {p13['digest_quantiles']}")
+    lap("13")
+
     src = "veneur_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_ingest", route="cuda",
@@ -4060,13 +4918,17 @@ def main() -> int:
                  "9": srv["launches"]["fused_ingest"],
                  "10": tiers["launches"]["fused_ingest"],
                  "11": gl["fused_ingest"],
-                 "12": fl["fused_ingest"]},
+                 "12": fl["fused_ingest"],
+                 "13": p13["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None,
              import_step={k: glob["k1"][k] for k in (
                  "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                 "bound_by", "max_run")}),
+                 "bound_by", "max_run")},
+             grown_offsets=[{k: o[k] for k in (
+                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                 "bound_ms", "bound_by")} for o in offsets]),
         dict(name="digest_quantiles", route="cuda",
              source=src + "digest_quantiles.cu",
              replaces="veneur_tpu/ops/pallas_digest.py:189",
@@ -4077,7 +4939,8 @@ def main() -> int:
                  "9": srv["launches"]["digest_quantiles"],
                  "10": tiers["launches"]["digest_quantiles"],
                  "11": gl["digest_quantiles"],
-                 "12": fl["digest_quantiles"]},
+                 "12": fl["digest_quantiles"],
+                 "13": p13["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
@@ -4112,7 +4975,6 @@ def main() -> int:
              bound_ms=digests_wide[0]["bound_ms"],
              bound_by=digests_wide[0]["bound_by"], library_ms=None),
     ]
-    lap("12")
     print(f"build {build_s:.1f} s; seconds by phase:", json.dumps(laps),
           f"total {sum(laps.values()):.1f} s")
     print(card)

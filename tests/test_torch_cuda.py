@@ -14,9 +14,10 @@ machine has no JAX.)
   batches where one slot takes a whole lane, and on hand-made streams
   with runs of 4,096+ entries, at the default widths (rows staged in
   shared memory) and at compression 2,400 with hll_precision 16 (rows
-  walked in place); at the widest rows it stages; and it refuses,
-  before any launch, streams that are not 16-byte aligned and tables
-  past 32-bit offsets;
+  walked in place); at the widest rows it stages; at tables whose rows
+  x width pass 2^31 (2^20 set rows at p = 14, 4,600,000 digest rows);
+  and it refuses, before any launch, streams that are not 16-byte
+  aligned and capacities past the stream sentinel;
 - digest quantiles (K2): within rtol/atol 2e-5 of the plain version, on
   rows staged in shared memory and on rows past 2,048 cells (global
   scratch);
@@ -34,6 +35,13 @@ machine has no JAX.)
   flushed InterMetrics; and with the history, query and watch tiers on,
   the same POST /query answers (instant, then range over three
   intervals) and the same watch transitions;
+- K1 past 32-bit offsets (C-8): at set_capacity 2^20 (p = 14) and at
+  histo_capacity 4,600,000 (x 472 cells), with the batch's set and
+  histogram slots at the tables' top rows, byte-exact against the plain
+  version run on a copy of the state on the card;
+- a Server on the card whose counter table grows at a flush (table
+  growth): the intervals before, across and after the grow flush the
+  InterMetrics a CPU Server flushes, with the same drops and capacities;
 - the global tier on the card against the same Server on the CPU: the
   same MetricLists over gRPC (the engine's vi_import, K1 steps) and a
   JSONMetric POST /import flush the same InterMetrics, and the shutdown
@@ -235,8 +243,9 @@ def test_fused_ingest_kernel_widest_spec_byte_exact(cuda):
 @pytest.mark.parametrize("case", ["misaligned_stream", "offsets"])
 def test_fused_ingest_refuses_what_the_kernel_cannot_index(cuda, case):
     """A stream that is not 16-byte aligned (a view at offset 1), and a
-    set table whose rows x words reach 2^31 (2^20 rows of 3,072 words),
-    raise ValueError before any launch."""
+    spec whose counter capacity passes the stream sentinel 2^30, raise
+    ValueError before any launch (the spec is refused before the state's
+    shapes are read)."""
     rng = np.random.default_rng(6)
     streams = cuda_ingest.IngestStreams(
         *(t.to(cuda) for t in _hand_streams(rng, SPEC)))
@@ -248,13 +257,13 @@ def test_fused_ingest_refuses_what_the_kernel_cannot_index(cuda, case):
         streams = streams._replace(c_inc=view)
         match = "16-byte aligned"
     else:
-        spec = tstate.TableSpec(counter_capacity=SPEC.counter_capacity,
+        spec = tstate.TableSpec(counter_capacity=(1 << 30) + 1,
                                 gauge_capacity=SPEC.gauge_capacity,
                                 status_capacity=SPEC.status_capacity,
-                                set_capacity=1 << 20,
+                                set_capacity=SPEC.set_capacity,
                                 histo_capacity=SPEC.histo_capacity)
-        match = "32-bit offsets"
-    gpu = tstate.empty_state(spec, cuda)
+        match = "sentinel"
+    gpu = tstate.empty_state(SPEC, cuda)
     before = cuda_ingest.launches
     with pytest.raises(ValueError, match=match):
         cuda_ingest.fused_ingest(gpu, streams, spec)
@@ -1117,3 +1126,99 @@ def test_forward_tier_on_the_card_matches_the_cpu(cuda):
                                        err_msg=g.name)
         else:
             assert g.value == c.value, g.name
+
+
+@pytest.mark.parametrize("kind", ["sets", "digests"])
+def test_fused_ingest_past_32bit_offsets_byte_exact(cuda, kind):
+    """C-8: the short-run groups index the state with 64-bit offsets, so a
+    table whose rows x width pass 2^31 is served, byte for byte."""
+    import dataclasses
+    base = tstate.TableSpec()
+    spec = dataclasses.replace(
+        base, **({"set_capacity": 1 << 20} if kind == "sets"
+                 else {"histo_capacity": 4_600_000}))
+    rng = np.random.default_rng(11)
+    b = _batch(rng, spec, 8192)
+    top = {"set_slot": spec.set_capacity, "histo_slot": spec.histo_capacity}
+    b = b._replace(**{k: (cap - 1 - np.abs(getattr(b, k))).astype(np.int32)
+                      for k, cap in top.items()})
+    gpu = tstate.empty_state(spec, cuda)
+    streams = tstep.build_streams(gpu, tstep.Batch(*(
+        None if a is None else torch.from_numpy(a).to(cuda) for a in b)),
+        spec)
+    plain = tstate.DeviceState(*(t.clone() for t in gpu))
+    before = cuda_ingest.launches
+    cuda_ingest.fused_ingest(gpu, streams, spec)
+    cuda_ingest.fused_ingest_plain(plain, streams, spec)
+    assert cuda_ingest.launches == before + 1
+    for name in cuda_ingest.STATE_LEAVES:
+        assert torch.equal(getattr(gpu, name), getattr(plain, name)), name
+    del gpu, plain, streams
+    torch.cuda.empty_cache()
+
+
+def _grow_run(device):
+    """A Server with table growth: 100 counters into 64 slots (36 exact
+    drops), the flush that grows the table, then 120 counters at 128 and
+    the flush that grows it to 256; returns each flush's app
+    InterMetrics and (capacity, drops) after it."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    sink = DebugMetricSink()
+    srv = Server(Config(
+        interval="3600s", hostname="h", percentiles=[0.5, 0.99],
+        aggregates=["min", "max", "count"], statsd_listen_addresses=[],
+        http_address="", table_grow_enabled=True, tpu_counter_capacity=64,
+        tpu_gauge_capacity=64, tpu_status_capacity=16, tpu_set_capacity=16,
+        tpu_histo_capacity=64, tpu_batch_counter=128),
+        metric_sinks=[sink], device=device)
+    srv.start()
+    out = []
+    try:
+        for scale, n in ((1, 100), (2, 100), (3, 120)):
+            lines = [b"gw.c%d:%d|c" % (i, scale * (i % 7 + 1))
+                     for i in range(n)]
+            lines += [b"gw.t%d:%d|ms" % (i % 3, scale * i + 1)
+                      for i in range(30)]
+            lines += [b"gw.s:u%d|s" % (i % 40) for i in range(60)]
+            base = srv.aggregator.eng.stats()
+            for k in range(0, len(lines), 50):
+                srv.packet_queue.put(b"\n".join(lines[k:k + 50]))
+            t0 = time.time()
+            while True:
+                st = srv.aggregator.eng.stats()
+                seen = sum(st[k] - base[k] for k in st)
+                if seen >= len(lines):
+                    break
+                assert time.time() - t0 < 60, "lines not all seen"
+                time.sleep(0.01)
+            sink.flushed.clear()
+            assert srv.trigger_flush(timeout=120)
+            out.append((sorted((m for m in sink.flushed
+                                if m.name.startswith("gw.")),
+                               key=lambda m: (m.name, m.tags)),
+                        srv.aggregator.spec.counter_capacity,
+                        srv.aggregator.dropped_capacity))
+    finally:
+        srv.shutdown()
+    return out
+
+
+def test_grow_on_the_card_matches_the_cpu(cuda):
+    want = _grow_run("cpu")
+    cuda_ingest.launches = cuda_digest.launches = 0
+    got = _grow_run(cuda)
+    assert cuda_ingest.launches >= 3 and cuda_digest.launches >= 3
+    assert [g[1:] for g in got] == [w[1:] for w in want] == [
+        (128, 36), (128, 36), (256, 36)]
+    for (gims, _, _), (cims, _, _) in zip(got, want):
+        assert [(m.name, m.tags, m.type) for m in gims] == \
+            [(m.name, m.tags, m.type) for m in cims]
+        for g, c in zip(gims, cims):
+            if g.name.endswith("percentile"):
+                assert abs(g.value - c.value) <= 1e-2 * abs(c.value) + 1e-6
+            elif g.name.startswith("gw.s"):
+                assert abs(g.value - c.value) <= 1e-5 * c.value
+            else:
+                assert g.value == c.value, g.name

@@ -191,26 +191,29 @@ def test_plain_kernel_duplicate_slot_ordering():
     (dict(hll_precision=15, compression=2200.0), "staged"),
     (dict(hll_precision=16), "in_place"),
     (dict(compression=2400.0), "in_place"),
-    (dict(set_capacity=1 << 20), "32-bit offsets"),
-], ids=["default", "widest", "p16", "wide_digest", "offsets"])
+    (dict(set_capacity=1 << 20, histo_capacity=4_600_000), "staged"),
+    (dict(counter_capacity=(1 << 30) + 1), "sentinel"),
+], ids=["default", "widest", "p16", "wide_digest", "offsets", "sentinel"])
 def test_kernel_stages_or_walks_rows_in_place_and_refuses_offsets(kw,
                                                                   route):
     """The CUDA branch picks its kernel from the spec before it launches:
     rows that fit a block's shared memory (the default widths, and the
     widest: hll_precision 15 with 3,624 digest cells) are staged; a set
     row at hll_precision 16 or a digest row of 3,928 cells (compression
-    2,400) is walked in place, with the stages alone in shared memory;
-    only targets past 32-bit offsets raise ValueError."""
+    2,400) is walked in place, with the stages alone in shared memory.
+    Its offsets are 64-bit: tables whose rows x width pass 2^31 (2^20
+    set rows of 3,072 words, 4,600,000 digest rows of 472 cells) are
+    served; only a capacity past the stream sentinel 2^30 raises."""
     spec = tstate_mod.TableSpec(**kw)
     need = cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells)
-    if route == "32-bit offsets":
-        with pytest.raises(ValueError, match=route):
+    if route == "sentinel":
+        with pytest.raises(ValueError, match="sentinel"):
             cuda_ingest._check_spec(spec)
         return
     cuda_ingest._check_spec(spec)
     assert cuda_ingest.rows_in_place(spec) == (route == "in_place")
     assert (need <= cuda_ingest.SMEM_PER_BLOCK) == (route == "staged")
-    if not kw:
+    if not kw or "set_capacity" in kw:
         assert need == 83_200              # 2 blocks an SM at the defaults
     # in place, a block holds the walks' stages alone, at any width
     assert cuda_ingest.shared_bytes(spec.hll_words, spec.total_cells,

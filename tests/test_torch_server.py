@@ -592,9 +592,7 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 REFUSED = {
     "collective_enabled": True,
     "collective_attach": "default", "tpu_n_shards": 2,
-    "table_grow_enabled": True, "reshard_enabled": True,
-    "tag_frequency_enabled": True, "overload_enabled": True,
-    "tenant_enabled": True,
+    "reshard_enabled": True, "tag_frequency_enabled": True,
 }
 
 
@@ -609,6 +607,27 @@ def test_keys_outside_the_slice_raise_naming_their_roadmap_item(key, item):
     cfg = tconfig.Config(**dict(SMALL, **{key: REFUSED[key]}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tserver_mod.Server(cfg, device="cpu")
+
+
+# the keys of overload, tenancy (ROADMAP A11) and table growth (A8a),
+# which the slice now serves
+PRESSURE_KEYS = ("overload_enabled", "tenant_enabled", "table_grow_enabled")
+
+
+@pytest.mark.parametrize("key", PRESSURE_KEYS)
+def test_pressure_keys_build_a_server_that_runs_them(key):
+    assert key not in {k for k, _f, _i in tserver_mod.NOT_PORTED}
+    kw = dict(SMALL, statsd_listen_addresses=[], ssf_listen_addresses=[],
+              http_address="", **{key: True})
+    srv = tserver_mod.Server(tconfig.Config(**kw), device="cpu")
+    attr = {"overload_enabled": "_overload", "tenant_enabled": "tenancy",
+            "table_grow_enabled": "tables"}[key]
+    assert getattr(srv, attr) is not None
+    srv.start()
+    try:
+        assert srv.trigger_flush(timeout=60)
+    finally:
+        srv.shutdown()
 
 
 # the keys of the forward tier (ROADMAP A6f), which the slice now serves

@@ -90,6 +90,11 @@ class KeyTable:
     """(kind, name, joined tags) -> slot for one flush interval. Timers and
     histograms share the histo table but are distinct key namespaces."""
 
+    # optional tables.pressure.TablePressure, attached by the backend's
+    # swap() when table growth is on; stays None (one branch on the miss
+    # path only) otherwise
+    pressure = None
+
     def __init__(self, spec: TableSpec, n_shards: int = 1):
         self.spec = spec
         self.n_shards = n_shards
@@ -118,6 +123,11 @@ class KeyTable:
         slot = t.by_key.get(key)
         if slot is not None:
             return slot
+        if self.pressure is not None:
+            # miss path only: the pressure ladder (tables/pressure.py) may
+            # redirect the key to a rollup or merge slot, or admit it
+            return self.pressure.admit(t, key, digest, name, tags, scope,
+                                       kind, hostname, imported, joined_tags)
         return t.alloc(key, digest, name, tags, scope, kind,
                        hostname=hostname, imported=imported,
                        joined_tags=joined_tags)

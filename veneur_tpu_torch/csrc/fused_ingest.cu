@@ -412,14 +412,16 @@ __device__ __forceinline__ void hll_max(uint32_t& a0, uint32_t& a1,
 }
 
 // Lanes with `in` set hold one step's entries: the group at word `key` of
-// `words`, registers and rhos at sreg[lane] / srho[lane] in shared
-// memory. The peers of a group meet at its lowest lane, which applies
-// them all to the group's three words.
+// `words` (a 64-bit offset: rows x words passes 2^31 at p = 14 past
+// 699,050 set rows), registers and rhos at sreg[lane] / srho[lane] in
+// shared memory. The peers of a group meet at its lowest lane, which
+// applies them all to the group's three words.
 __device__ __forceinline__ void apply_groups(uint32_t* __restrict__ words,
                                              const int32_t* sreg,
                                              const int32_t* srho, bool in,
-                                             int32_t key, int lane) {
-  const unsigned peers = __match_any_sync(kFull, in ? key : -lane - 1);
+                                             long long key, int lane) {
+  const unsigned peers =
+      __match_any_sync(kFull, in ? key : (long long)(-lane - 1));
   if (in && __ffs(peers) - 1 == lane) {
     uint32_t* g = words + key;
     uint32_t a0 = g[0], a1 = g[1], a2 = g[2];
@@ -448,7 +450,7 @@ __device__ __forceinline__ void set_lane(const IngestArgs& a, float* sm,
     sg[32 + lane] = a.s_rho[ic];
     __syncwarp();
     apply_groups(a.hll, sg, sg + 32, r.own,
-                 (int32_t)(r.key * a.hll_words) + 3 * (reg >> 4), lane);
+                 (long long)r.key * a.hll_words + 3 * (reg >> 4), lane);
   }
   if (r.long_lane < 0) return;
   // the long run: the slot's row staged in shared memory (or, in place,
@@ -658,14 +660,16 @@ __device__ __forceinline__ void histo_slot_lane(const IngestArgs& a,
 
 // -- histogram: the per-(slot, cell) chains -------------------------------------
 
-// A short run's entries: lanes with `in` set hold (target index key, w,
-// wv); the peers of a key meet at its lowest lane, which adds their values
-// in lane order to h_w[key] / h_wm[key].
+// A short run's entries: lanes with `in` set hold (target index key, a
+// 64-bit offset: rows x cells passes 2^31 at 472 cells past 4,549,752
+// digest rows, w, wv); the peers of a key meet at its lowest lane, which
+// adds their values in lane order to h_w[key] / h_wm[key].
 __device__ __forceinline__ void add_groups(float* __restrict__ tw,
                                            float* __restrict__ tm, bool in,
-                                           int32_t key, float w, float wv,
+                                           long long key, float w, float wv,
                                            int lane) {
-  const unsigned peers = __match_any_sync(kFull, in ? key : -lane - 1);
+  const unsigned peers =
+      __match_any_sync(kFull, in ? key : (long long)(-lane - 1));
   if (__all_sync(kFull, !in || peers == (1u << lane))) {  // no repeats
     if (in) {
       tw[key] += w;
@@ -815,7 +819,7 @@ __device__ __forceinline__ void cell_lane(const IngestArgs& a,
   const long long ic = i < n ? i : n - 1;
   if (__any_sync(kFull, r.own))
     add_groups(a.h_w, a.h_wm, r.own,
-               (int32_t)(r.key * a.cells) + a.h_cell[ic], a.h_wt[ic],
+               (long long)r.key * a.cells + a.h_cell[ic], a.h_wt[ic],
                a.h_wv[ic], lane);
   if (r.long_lane >= 0)
     warp_cells_run<kInPlace>(a, sm, base + r.long_lane, n,

@@ -18,7 +18,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -112,6 +112,13 @@ def load() -> ctypes.CDLL:
         "vt_tenant_restore": (cint, [vp, ctypes.c_char_p, cint]),
         "vt_tenant_rows": (cint, [vp, i32p, u64p, cint]),
         "vrm_tenant_counters": (cint, [vp, cint, i32p, u64p, cint]),
+        "vt_capacity_set": (None, [vp, u32, u32, u32, u32]),
+        "vt_table_stats": (None, [vp, u64p]),
+        "vrm_capacity_set": (None, [vp, u32, u32, u32, u32]),
+        "vrm_table_stats": (None, [vp, u64p]),
+        "vt_set_tenant": (None, [vp, ctypes.c_char_p, cint]),
+        "vt_tenant_extract": (cint, [ctypes.c_char_p, cint, ctypes.c_char_p,
+                                     cint, ctypes.c_char_p, cint]),
         "vi_import": (cint, [vp, ctypes.c_char_p, cint, cint,
                              ctypes.POINTER(cint), i32p, i32p, cint,
                              ctypes.POINTER(cint), ctypes.POINTER(cint)]),
@@ -124,6 +131,22 @@ def load() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def tenant_extract(tag: str, data: bytes) -> Optional[str]:
+    """The engine's tenant-tag extraction (vt_tenant_extract) on its own:
+    the value of the first well-formed `tag` occurrence in a raw
+    datagram, or None for every default-tenant outcome (missing tag,
+    empty, oversized or invalid-UTF-8 value, a tag cut by truncation).
+    reliability/tenancy.py extract_tenant is its Python mirror."""
+    lib = load()
+    tag_b = tag.encode("utf-8", "surrogateescape")
+    out = ctypes.create_string_buffer(256)
+    n = lib.vt_tenant_extract(tag_b, len(tag_b), data, len(data), out,
+                              len(out))
+    if n <= 0:
+        return None
+    return out.raw[:n].decode("utf-8", "surrogateescape")
 
 
 def _i32p(a: np.ndarray):
@@ -316,6 +339,30 @@ class NativeIngest:
             self._lib.vrm_reset(self._rings)
         else:
             self._lib.vt_reset(self._h)
+
+    def capacity_set(self, counter: int, gauge: int, set_: int,
+                     histo: int) -> None:
+        """Stage new per-kind table capacities (0 keeps one); they take
+        effect at the next reset(), inside the swap's quiesce, never
+        at once. tables/growth.py is the one caller."""
+        args = (int(counter), int(gauge), int(set_), int(histo))
+        if self._rings:
+            self._lib.vrm_capacity_set(self._rings, *args)
+        else:
+            self._lib.vt_capacity_set(self._h, *args)
+
+    def table_stats(self) -> dict:
+        """Per-kind key-table occupancy for the growth planner:
+        {kind: (allocated, cumulative dropped, capacity)} over the
+        engine's four tables. Takes the key tables' lock shared, so it is
+        safe beside ring parsing."""
+        s = (ctypes.c_uint64 * 12)()
+        if self._rings:
+            self._lib.vrm_table_stats(self._rings, s)
+        else:
+            self._lib.vt_table_stats(self._h, s)
+        return {k: (int(s[i * 3]), int(s[i * 3 + 1]), int(s[i * 3 + 2]))
+                for i, k in enumerate(("counter", "gauge", "set", "histo"))}
 
     def stats(self) -> dict:
         s = (ctypes.c_uint64 * 3)()
@@ -607,6 +654,13 @@ class NativeIngest:
         n = int(self._lib.vt_tenant_restore(self._h, blob, len(blob)))
         self._tenant_refresh_names()
         return n
+
+    def set_tenant(self, name: str) -> None:
+        """Parse context of the feed path: later feed() calls parse as
+        tenant `name` (empty: the default tenant). The ring engine
+        resolves the tenant of each datagram itself."""
+        nb = name.encode("utf-8", "surrogateescape")
+        self._lib.vt_set_tenant(self._h, nb, len(nb))
 
     def tenant_rows_drain(self) -> dict:
         """Drain-and-reset the master parser's exact demoted-row counts

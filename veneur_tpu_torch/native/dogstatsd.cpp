@@ -1052,9 +1052,8 @@ void vt_shard_map_set(void* hp, uint32_t n_shards) {
 
 // Stage new per-kind capacities (0 = keep current). Takes effect at the
 // next vt_reset — i.e. inside the caller's swap quiesce — never
-// immediately. The swap-boundary sequencing lives in
-// veneur_tpu/tables/growth.py; call it from there only (the
-// table-grow-quiesce vtlint pass enforces this).
+// immediately. The swap-boundary sequencing lives in tables/growth.py;
+// call it from there only.
 void vt_capacity_set(void* hp, uint32_t cc, uint32_t gc, uint32_t sc,
                      uint32_t hc) {
   auto* p = (Parser*)hp;

@@ -21,8 +21,10 @@ lane by (slot, cell) itself, on the card. It stages a hot key's row in
 shared memory; at widths whose rows do not fit a block's (hll_precision
 16, or more than 3,630 digest cells) the wrapper launches the kernel's
 in-place instantiation instead, which walks such a row where it lies in
-global memory (`rows_in_place`). It refuses (ValueError) only tables
-past 32-bit offsets. `launches` counts launches of the staging kernel,
+global memory (`rows_in_place`). Its offsets into the state are 64-bit,
+so it serves every width the plain version does; it refuses (ValueError)
+only slots past the stream sentinel and launches past a block's shared
+memory. `launches` counts launches of the staging kernel,
 `wide_launches` those of the in-place one, and nothing else.
 """
 
@@ -187,14 +189,28 @@ def rows_in_place(spec) -> bool:
     return shared_bytes(spec.hll_words, spec.total_cells) > SMEM_PER_BLOCK
 
 
+@functools.lru_cache(maxsize=None)
 def _check_spec(spec):
-    """Refuse what the kernel cannot index: targets past 32-bit offsets."""
-    for name, rows, width in (("hll", spec.set_capacity, spec.hll_words),
-                              ("h_w", spec.histo_capacity,
-                               spec.total_cells)):
-        if rows * width >= 1 << 31:
-            raise ValueError(f"state.{name}: the kernel indexes it with "
-                             f"32-bit offsets; {rows} x {width} is too big")
+    """Refuse only what the kernel cannot run (once a spec: a refusal
+    raises, so only accepted specs are cached). Its global offsets are
+    64-bit, so no table width is refused for its size; what stays is a
+    slot past the stream sentinel (slots are i32 and BIG marks a dropped
+    row), and a launch's shared memory past what an sm_90 block may have
+    (the in-place instantiation needs the stages alone, so no width the
+    spec allows reaches it)."""
+    for name, rows in (("counter", spec.counter_capacity),
+                       ("gauge", spec.gauge_capacity),
+                       ("status", spec.status_capacity),
+                       ("set", spec.set_capacity),
+                       ("histo", spec.histo_capacity)):
+        if rows > BIG:
+            raise ValueError(f"{name}_capacity {rows}: slots must stay "
+                             f"below the stream sentinel 2^30")
+    smem = shared_bytes(spec.hll_words, spec.total_cells,
+                        rows_in_place(spec))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{smem} bytes of shared memory a block: past the "
+                         f"{SMEM_PER_BLOCK} an sm_90 block may have")
 
 
 def _validate(state, st: IngestStreams, spec, device):

@@ -84,6 +84,10 @@ class _PackBuffer:
 
 
 class Aggregator:
+    # optional tables.pressure.TablePressure shared across intervals (the
+    # Python key tables only: the C++ engine keeps exact counted drops)
+    _pressure = None
+
     def __init__(self, spec: TableSpec, bspec: BatchSpec = BatchSpec(),
                  device=None, compact_every: int = 8):
         self.device = resolve_device(device)
@@ -122,6 +126,23 @@ class Aggregator:
         self.last_set_shift = 0
         self.degraded_timer_skipped = 0
         self.degraded_set_skipped = 0
+
+    def set_pressure(self, pressure) -> None:
+        """Install a tables.pressure.TablePressure: the live table and
+        every later interval's fresh KeyTable (swap) get it attached."""
+        self._pressure = pressure
+        if pressure is not None:
+            pressure.attach(self.table)
+
+    def _staging_buffers(self) -> list:
+        return [b for bufs in self._pack_bufs.values() for b in bufs[:2]]
+
+    def wait_copies(self) -> None:
+        """Wait until every copy out of this backend's pinned staging
+        buffers has read them (a grow retires the backend while its last
+        step's copy may still be in flight)."""
+        for buf in self._staging_buffers():
+            buf.ready()
 
     # -- degraded aggregation ------------------------------------------------
     def _histo_admit(self, sample_rate: float):
@@ -376,6 +397,8 @@ class Aggregator:
         state, table = self.state, self.table
         self.state = empty_state(self.spec, self.device)
         self.table = KeyTable(self.spec)
+        if self._pressure is not None:
+            self._pressure.attach(self.table)
         self._steps = 0
         self._latch_degrade()
         return state, table

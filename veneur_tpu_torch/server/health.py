@@ -26,14 +26,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from veneur_tpu_torch.reliability.overload import PRESSURED, STATE_NAMES
 from veneur_tpu_torch.reliability.policy import OPEN
-
-# the overload controller's health states (reference package's
-# reliability/overload.py); the controller itself is not ported yet, so a
-# server here always reads HEALTHY
-HEALTHY, PRESSURED, SHEDDING, CRITICAL = 0, 1, 2, 3
-STATE_NAMES = {HEALTHY: "healthy", PRESSURED: "pressured",
-               SHEDDING: "shedding", CRITICAL: "critical"}
 
 
 def _flush_staleness_budget(server) -> float:

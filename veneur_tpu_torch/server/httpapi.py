@@ -28,6 +28,7 @@ import zlib
 from urllib.parse import parse_qs, urlparse
 
 from veneur_tpu_torch import __version__ as VERSION
+from veneur_tpu_torch.reliability.overload import CRITICAL
 
 log = logging.getLogger("veneur_tpu_torch.server.http")
 
@@ -298,12 +299,20 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
             """Batched read API: answer quantile / cardinality / counter
             reads from the resident device state, and range reads from
             the history ring. Shutdown gate first, then the config gate
-            (an unaware deployment exposes nothing)."""
+            (an unaware deployment exposes nothing), then the CRITICAL
+            shed: reads are the first load to drop when the flush path
+            is fighting for the device."""
             if self._shutdown_gate():
                 return
             engine = server.query_engine
             if engine is None:
                 self._reply(404, b"query_enabled is off")
+                return
+            if server._overload is not None \
+                    and server._overload.state >= CRITICAL:
+                # exact drop accounting: one inc per refused request
+                server._c_query_shed.inc()
+                self._reply(503, b"overloaded: query shed")
                 return
             req = self._json_body("/query")
             if req is None:
@@ -528,11 +537,18 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                                  b"metrics")
                 return
             try:
-                server.import_metrics(metrics, envelope=envelope)
+                ok = server.import_metrics(metrics, envelope=envelope)
             except EnvelopeError as e:
                 # the dedup window's skip bound (counted by the server)
                 self._import_error("envelope")
                 self._reply(400, str(e).encode())
+                return
+            if not ok:
+                # CRITICAL overload sheds imports: 503 tells the sending
+                # tier to retry elsewhere or later instead of a 202 for
+                # data that was discarded. A suppressed duplicate is not
+                # a shed: import_metrics acks it True.
+                self._reply(503, b"overloaded: import shed")
                 return
             self._import_timing(self._import_t0, "request")
             self._reply(202, b"imported")
@@ -552,11 +568,14 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                 self._reply(400, b"bad MetricList protobuf")
                 return
             try:
-                server.import_metrics(list(mlist.metrics),
-                                      envelope=envelope)
+                ok = server.import_metrics(list(mlist.metrics),
+                                           envelope=envelope)
             except EnvelopeError as e:
                 self._import_error("envelope")
                 self._reply(400, str(e).encode())
+                return
+            if not ok:
+                self._reply(503, b"overloaded: import shed")
                 return
             self._import_timing(self._import_t0, "request")
             self._reply(202, b"imported")

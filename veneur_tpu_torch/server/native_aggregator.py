@@ -196,6 +196,10 @@ class NativeAggregator(Aggregator):
         self._rg_prev = [np.zeros((n_rings, 4), np.uint32) for _ in range(2)]
         self._rg_idx = 0
 
+    def _staging_buffers(self) -> list:
+        return (super()._staging_buffers() + self._pk_bufs
+                + getattr(self, "_rg_bufs", []))
+
     def _new_buffer(self, shape) -> _PackBuffer:
         """A pinned (on the card) packed buffer, every row filled with
         sentinels once. Afterwards it is never zeroed or reallocated:
@@ -423,6 +427,23 @@ class NativeAggregator(Aggregator):
 
     def tenant_rows_drain(self) -> dict:
         return self.eng.tenant_rows_drain()
+
+    def set_tenant(self, name: str) -> None:
+        """Parse context of the feed path: later feed() calls parse as
+        tenant `name` (empty: the default tenant)."""
+        self.eng.set_tenant(name)
+
+    # -- key-table growth ----------------------------------------------------
+    def capacity_set(self, counter: int, gauge: int, set_: int,
+                     histo: int) -> None:
+        """Stage new per-kind engine capacities; the next swap's reset
+        applies them."""
+        self.eng.capacity_set(counter, gauge, set_, histo)
+
+    def table_stats(self) -> dict:
+        """{kind: (allocated, cumulative dropped, capacity)} of the
+        engine's four key tables."""
+        return self.eng.table_stats()
 
     def readers_stop(self) -> None:
         self.eng.readers_stop()

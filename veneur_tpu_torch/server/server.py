@@ -29,6 +29,18 @@ Maps the reference's Server (server.go:83 struct, :771 Start, :1303 Serve):
   unit under a (source_id, epoch, seq) envelope before the checkpoint
   build, re-sent under the same seq until acked, and a receiver
   suppresses the duplicates its window has seen (forward/envelope.py).
+- Overload (`overload_enabled`): reliability/overload.py's controller
+  polls the pressure signals, admits or sheds each statsd buffer before
+  its parse (and, with `overload_native_admission`, pushes the same
+  decision into the C++ rings), degrades timers and sets at SHEDDING,
+  and at CRITICAL sheds imports, queries and watch evaluations and
+  withholds low-priority rows from the sinks. Tenancy (`tenant_enabled`,
+  reliability/tenancy.py) layers weighted per-tenant buckets under it
+  and mirrors the engine's quarantine; the checkpoint carries it.
+- Key-table growth (`table_grow_enabled`, tables/): a flush whose tables
+  passed their high-water mark swaps into a backend built at the grown
+  capacities; the detached interval flushes against the old one, and
+  the checkpoint's "keytables" chunk re-grows a restore before its fold.
 
 The device state lives on `device`: the card unless the caller names
 another. The pipeline thread launches the ingest kernel (through the
@@ -64,7 +76,8 @@ from veneur_tpu_torch.config import Config
 from veneur_tpu_torch.forward.envelope import FRESH, Envelope, EnvelopeError
 from veneur_tpu_torch.query.snapshot import PipelineRequest
 from veneur_tpu_torch.reliability.faults import FAULTS, FLUSH_WORKER
-from veneur_tpu_torch.reliability.policy import (CircuitBreaker,
+from veneur_tpu_torch.reliability.overload import CRITICAL
+from veneur_tpu_torch.reliability.policy import (OPEN, CircuitBreaker,
                                                  CircuitOpenError,
                                                  RetryPolicy)
 from veneur_tpu_torch.samplers import parser
@@ -83,11 +96,8 @@ NOT_PORTED = (
     ("collective_enabled", lambda c: c.collective_enabled, "A7"),
     ("collective_attach", lambda c: bool(c.collective_attach), "A7"),
     ("tpu_n_shards", lambda c: c.tpu_n_shards > 1, "A7"),
-    ("table_grow_enabled", lambda c: c.table_grow_enabled, "A8"),
     ("reshard_enabled", lambda c: c.reshard_enabled, "A8"),
     ("tag_frequency_enabled", lambda c: c.tag_frequency_enabled, "A9"),
-    ("overload_enabled", lambda c: c.overload_enabled, "A11"),
-    ("tenant_enabled", lambda c: c.tenant_enabled, "A11"),
 )
 
 
@@ -212,9 +222,8 @@ class Server:
         self.interval = cfg.parse_interval()
         self.hostname = cfg.hostname
         self.tags = list(cfg.tags)
-        self._native = bool(cfg.native_ingest)
         self._native_readers_active = False
-        self.aggregator = self._make_aggregator()
+        self.aggregator, self._native = self._make_aggregator(1)
         if cfg.profile_capture_enabled and self.device.type == "cuda":
             # GET /debug/profile captures from an HTTP thread
             from veneur_tpu_torch.observability import runtime
@@ -352,6 +361,63 @@ class Server:
                     self.forward_spill = ForwardSpillBuffer(
                         32 << 20, cfg.forward_spill_max_age_s)
 
+        # -- overload management (reliability/overload.py) ----------------
+        # Off by default: no controller object, and every hot-path gate
+        # is a single `is not None` check.
+        self._overload = None
+        # -- multi-tenant fairness (reliability/tenancy.py) ----------------
+        # Off by default: no identity extraction anywhere. With tenancy
+        # on, the TenantFairness ledger exists even without the overload
+        # controller; its fairness buckets only bite at SHEDDING+ through
+        # the controller.
+        self.tenancy = None
+        self._tenant_restore_entries = None
+        if cfg.tenant_enabled:
+            from veneur_tpu_torch.reliability.tenancy import TenantFairness
+            self.tenancy = TenantFairness(
+                tag=cfg.tenant_tag,
+                weights=cfg.tenant_weights,
+                base_rate=cfg.tenant_fair_rate,
+                burst_mult=cfg.tenant_fair_burst_mult,
+                quarantine_max_keys=cfg.tenant_quarantine_max_keys,
+                quarantine_decay=cfg.tenant_quarantine_decay,
+                quarantine_readmit_frac=cfg.tenant_quarantine_readmit_frac)
+        if cfg.overload_enabled:
+            from veneur_tpu_torch.reliability.overload import (
+                OverloadController)
+            self._overload = OverloadController(
+                signals=self._overload_signals,
+                enter_pressured=cfg.overload_enter_pressured,
+                enter_shedding=cfg.overload_enter_shedding,
+                enter_critical=cfg.overload_enter_critical,
+                exit_margin=cfg.overload_exit_margin,
+                hold_s=cfg.overload_hold_s,
+                admit_rate=cfg.overload_admit_rate,
+                admit_burst=cfg.overload_admit_burst,
+                timer_sample_rate=cfg.overload_timer_sample_rate,
+                set_shift=cfg.overload_set_shift,
+                shed_priority_tags=cfg.shed_priority_tags,
+                tenancy=self.tenancy)
+
+        # -- self-adjusting key tables (tables/) ----------------------------
+        # Off by default: no manager, no pressure ladder, and the flush
+        # path's grow gate is a single `is not None` check.
+        self.tables = None
+        if cfg.table_grow_enabled:
+            from veneur_tpu_torch.tables import TableManager, TablePressure
+            self.tables = TableManager(
+                self.aggregator.spec,
+                max_capacity=cfg.table_max_capacity,
+                idle_ttl_s=cfg.table_idle_ttl_s)
+            if not self._native:
+                # the pressure ladder rides the Python key tables; the
+                # C++ engine keeps exact counted drops (absorbed by the
+                # next grow) instead
+                pressure = TablePressure(
+                    salsa_enabled=cfg.table_salsa_enabled)
+                self.tables.pressure = pressure
+                self.aggregator.set_pressure(pressure)
+
         # -- TCP statsd hardening -----------------------------------------
         # live-connection accounting for tcp_max_connections; the idle
         # deadline lives in _tcp_conn
@@ -467,24 +533,29 @@ class Server:
         # last: every attribute a collector closes over now exists
         self._register_collectors()
 
-    def _make_aggregator(self):
+    def _make_aggregator(self, n_shards: int, engine=None, spec=None):
         """The single-device backend from the current config: the C++
         engine's NativeAggregator (native_ingest, the default) or the
-        Python-parsing Aggregator, on the server's device."""
+        Python-parsing Aggregator, on the server's device. Returns
+        (aggregator, is_native). tables/growth.py passes the running
+        `engine`, whose reader rings keep feeding the same handle across
+        the rebuild, and the grown `spec`. `n_shards` keeps the
+        reference's signature: this package serves one shard
+        (tpu_n_shards > 1 is refused at construction)."""
         cfg = self.cfg
         args = dict(
-            spec=spec_from_config(cfg),
+            spec=spec if spec is not None else spec_from_config(cfg),
             bspec=BatchSpec(counter=cfg.tpu_batch_counter,
                             gauge=cfg.tpu_batch_gauge,
                             status=cfg.tpu_batch_status,
                             set=cfg.tpu_batch_set,
                             histo=cfg.tpu_batch_histo),
             device=self.device, compact_every=cfg.tpu_compact_every)
-        if self._native:
+        if cfg.native_ingest:
             from veneur_tpu_torch.server.native_aggregator import (
                 NativeAggregator)
-            return NativeAggregator(**args)
-        return Aggregator(**args)
+            return NativeAggregator(engine=engine, **args), True
+        return Aggregator(**args), False
 
     def _register_instruments(self) -> None:
         """The registry's owned instruments. Families of features this
@@ -793,29 +864,97 @@ class Server:
                    kind="counter",
                    help="dedup streams evicted at the "
                         "forward_dedup_max_sources LRU bound")
-        # families of features this package has not ported yet: overload
-        # and tenancy (A11), table growth (A8)
-        for name, kind, labels in (
-                ("veneur.overload.state", "gauge", ()),
-                ("veneur.overload.pressure", "gauge", ()),
-                ("veneur.overload.shed_total", "counter", ("class",)),
-                ("veneur.overload.admitted_total", "counter", ()),
-                ("veneur.overload.degraded_flushes_total", "counter", ()),
-                ("veneur.overload.degraded_samples_total", "counter",
-                 ("kind",)),
-                ("veneur.tenant.admitted_total", "counter", ("tenant",)),
-                ("veneur.tenant.shed_total", "counter", ("tenant",)),
-                ("veneur.tenant.quarantined", "gauge", ("tenant",)),
-                ("veneur.tenant.demoted_rows_total", "counter",
-                 ("tenant",)),
-                ("veneur.table.grows_total", "counter", ("kind",)),
-                ("veneur.table.capacity", "gauge", ("kind",)),
-                ("veneur.table.evicted_total", "counter", ("kind",)),
-                ("veneur.table.merged_cells_total", "counter", ("kind",)),
-                ("veneur.table.demoted_rows_total", "counter", ("kind",))):
-            M.callback(name, lambda lab=labels: [] if lab else None,
-                       kind=kind, labelnames=labels,
-                       help="not ported yet: no series")
+        # overload management: None/[] while the controller is off keeps
+        # the series out of the exposition, as spill/checkpoint above
+        M.callback("veneur.overload.state",
+                   lambda: (float(self._overload.state)
+                            if self._overload is not None else None),
+                   help="health state: 0 healthy / 1 pressured / "
+                        "2 shedding / 3 critical")
+        M.callback("veneur.overload.pressure",
+                   lambda: (self._overload.pressure
+                            if self._overload is not None else None),
+                   help="max normalized pressure signal, 0..1")
+        M.callback("veneur.overload.shed_total",
+                   lambda: (self._overload.shed_snapshot()
+                            if self._overload is not None else []),
+                   kind="counter", labelnames=("class",),
+                   help="samples refused by admission control or flush "
+                        "protection, by priority class")
+        M.callback("veneur.overload.admitted_total",
+                   lambda: (float(self._overload.admitted_total)
+                            if self._overload is not None else None),
+                   kind="counter",
+                   help="packets admitted past the overload controller")
+        M.callback("veneur.overload.degraded_flushes_total",
+                   lambda: (float(self._overload.degraded_flushes)
+                            if self._overload is not None else None),
+                   kind="counter",
+                   help="flushes published with degraded aggregation "
+                        "corrections or CRITICAL fan-out filtering")
+        M.callback("veneur.overload.degraded_samples_total",
+                   self._collect_degraded_samples, kind="counter",
+                   labelnames=("kind",),
+                   help="samples statistically subsumed (not staged) by "
+                        "degraded timer sampling / set subsampling")
+        # multi-tenant fairness: [] while tenancy is off keeps the
+        # labeled families out of the exposition
+        M.callback("veneur.tenant.admitted_total",
+                   lambda: (self.tenancy.admitted_snapshot()
+                            if self.tenancy is not None else []),
+                   kind="counter", labelnames=("tenant",),
+                   help="datagrams admitted past admission, by tenant")
+        M.callback("veneur.tenant.shed_total",
+                   lambda: (self.tenancy.shed_snapshot()
+                            if self.tenancy is not None else []),
+                   kind="counter", labelnames=("tenant",),
+                   help="datagrams refused by admission, by tenant")
+        M.callback("veneur.tenant.quarantined",
+                   lambda: (self.tenancy.quarantined_snapshot()
+                            if self.tenancy is not None else []),
+                   labelnames=("tenant",),
+                   help="1 while the tenant is demoted to aggregate-only "
+                        "rollup rows by the tag-explosion detector")
+        M.callback("veneur.tenant.demoted_rows_total",
+                   lambda: (self.tenancy.demoted_rows_snapshot()
+                            if self.tenancy is not None else []),
+                   kind="counter", labelnames=("tenant",),
+                   help="rows collapsed onto per-tenant rollup keys "
+                        "while quarantined (exact)")
+        # self-adjusting key tables: [] while growth is off
+        M.callback("veneur.table.grows_total",
+                   lambda: (self.tables.grows_snapshot()
+                            if self.tables is not None else []),
+                   kind="counter", labelnames=("kind",),
+                   help="capacity grow swaps executed at the flush "
+                        "boundary, by table kind")
+        M.callback("veneur.table.capacity",
+                   lambda: (self.tables.capacity_snapshot(
+                            self.aggregator.spec)
+                            if self.tables is not None else []),
+                   labelnames=("kind",),
+                   help="current per-kind key-table capacity (rows)")
+        M.callback("veneur.table.evicted_total",
+                   lambda: (self.tables.evicted_snapshot()
+                            if self.tables is not None else []),
+                   kind="counter", labelnames=("kind",),
+                   help="keys reclaimed by the idle-TTL census "
+                        "(table_idle_ttl_s), exact")
+        M.callback("veneur.table.merged_cells_total",
+                   lambda: (self.tables.pressure.merged_snapshot()
+                            if self.tables is not None
+                            and self.tables.pressure is not None else []),
+                   kind="counter", labelnames=("kind",),
+                   help="distinct long-tail keys redirected into SALSA "
+                        "merge cells under table pressure (exact; "
+                        "additive error bounded by the cell total)")
+        M.callback("veneur.table.demoted_rows_total",
+                   lambda: (self.tables.pressure.demoted_snapshot()
+                            if self.tables is not None
+                            and self.tables.pressure is not None else []),
+                   kind="counter", labelnames=("kind",),
+                   help="tag variants collapsed onto per-key-family "
+                        "rollup rows by the explosion detector (exact)")
 
     # -- registry collector helpers -----------------------------------------
     def _ring_stats(self) -> dict:
@@ -895,6 +1034,150 @@ class Server:
                     totals[s.name] = totals.get(s.name, 0) + n
         return [((name,), float(n)) for name, n in sorted(totals.items())]
 
+    def _collect_degraded_samples(self):
+        if self._overload is None:
+            return []
+        return [(("timer",),
+                 float(getattr(self.aggregator, "degraded_timer_skipped", 0))),
+                (("set",),
+                 float(getattr(self.aggregator, "degraded_set_skipped", 0)))]
+
+    # -- overload pressure signals ------------------------------------------
+    def _overload_signals(self):
+        """One {name: pressure} sample, each normalized to [0, 1] against
+        that resource's capacity. The controller takes the max: one
+        saturated resource is an overloaded server. Every signal is
+        defensive: a broken source reads nothing for a tick rather than
+        killing the poller."""
+        sig: dict = {}
+        try:
+            sig["packet_queue"] = (self.packet_queue.qsize()
+                                   / max(1, self.packet_queue.maxsize))
+        except Exception as e:
+            log.debug("overload signal packet_queue failed: %s", e)
+        try:
+            sig["flush_jobs"] = (self._flush_jobs.qsize()
+                                 / max(1, self._flush_jobs.maxsize))
+        except Exception as e:
+            log.debug("overload signal flush_jobs failed: %s", e)
+        try:
+            # flush lag against the staleness budget the watchdog and
+            # /healthz use; 1.0 == "the watchdog would fire now"
+            stale = time.time() - min(self.last_flush, self.last_flush_done)
+            missed = self.cfg.flush_watchdog_missed_flushes
+            budget = (missed * self.interval if missed and missed > 0
+                      else 10.0 * self.interval + 60.0)
+            sig["flush_lag"] = max(0.0, stale / budget)
+        except Exception as e:
+            log.debug("overload signal flush_lag failed: %s", e)
+        try:
+            # key-table capacity drops since the previous poll: any delta
+            # means rows are already being lost, so saturate at once
+            drops = self.aggregator.dropped_capacity
+            prev = getattr(self, "_ov_prev_capacity_drops", None)
+            self._ov_prev_capacity_drops = drops
+            sig["capacity_drops"] = (1.0 if prev is not None
+                                     and drops > prev else 0.0)
+        except Exception as e:
+            log.debug("overload signal capacity_drops failed: %s", e)
+        try:
+            if self.forward_spill is not None \
+                    and self.cfg.forward_spill_max_bytes > 0:
+                sig["spill_bytes"] = (self.forward_spill.bytes
+                                      / self.cfg.forward_spill_max_bytes)
+        except Exception as e:
+            log.debug("overload signal spill_bytes failed: %s", e)
+        try:
+            # an open forward breaker parks the server in PRESSURED (0.75
+            # sits between the default pressured and shedding thresholds)
+            if self._forward_breaker is not None \
+                    and self._forward_breaker.state == OPEN:
+                sig["forward_breaker"] = 0.75
+        except Exception as e:
+            log.debug("overload signal forward_breaker failed: %s", e)
+        try:
+            w = self._ckpt_writer
+            if w is not None and w.last_write_ts:
+                cadence = max(1, self.cfg.checkpoint_interval_flushes)
+                budget = 10.0 * cadence * self.interval + 60.0
+                sig["checkpoint_age"] = ((time.time() - w.last_write_ts)
+                                         / budget)
+        except Exception as e:
+            log.debug("overload signal checkpoint_age failed: %s", e)
+        try:
+            # the native datagram ring: ring depth is the native path's
+            # queue pressure, and any ring overflow since the last poll
+            # means datagrams are already being lost (saturate)
+            if self._native_readers_active:
+                rcs = self.aggregator.reader_counters()
+                sig["native_ring"] = rcs["ring_depth"] / 65536.0
+                drops = rcs["ring_dropped"]
+                prev = getattr(self, "_ov_prev_ring_drops", None)
+                self._ov_prev_ring_drops = drops
+                if prev is not None and drops > prev:
+                    sig["native_ring"] = 1.0
+        except Exception as e:
+            log.debug("overload signal native_ring failed: %s", e)
+        return sig
+
+    def _sync_native_admission(self, ov) -> None:
+        """Push the controller's statsd admission knobs into the C++
+        reader ring(s) and fold their exact per-class decisions back into
+        the controller's counters (overload_native_admission; off, the
+        native path bypasses admission)."""
+        if not (self._native_readers_active
+                and self.cfg.overload_native_admission):
+            return
+        try:
+            state, rate, burst, tags = ov.native_admission_params()
+            self.aggregator.admission_set(True, state, rate, burst, tags)
+            # the drain's "tenants" sub-dict routes through
+            # fold_native_counts into the tenancy ledger
+            ov.fold_native_counts(self.aggregator.admission_drain())
+            self._sync_native_tenancy(drain=False)
+        except Exception as e:
+            log.warning("native admission sync failed: %s", e)
+
+    def _push_tenant_config(self) -> None:
+        """One-time tenant push-down before the rings start (the tag is
+        read lock-free on the C++ admission path): create the engine
+        table, replay checkpointed quarantine state, seed weights."""
+        ten = self.tenancy
+        fn = getattr(self.aggregator, "tenant_config", None)
+        if ten is None or fn is None:
+            return
+        try:
+            fn(**ten.native_config())
+            if self._tenant_restore_entries:
+                self.aggregator.tenant_restore(self._tenant_restore_entries)
+                self._tenant_restore_entries = None
+            base_rate, weights = ten.native_params()
+            self.aggregator.tenant_params(base_rate, weights)
+        except Exception as e:
+            log.warning("tenant config push-down failed: %s", e)
+
+    def _sync_native_tenancy(self, drain: bool) -> None:
+        """Per-tick tenant sync with the C++ engine: push base rate and
+        weights, refresh the quarantine mirror from the engine table.
+        With `drain`, also fold the per-tenant admission deltas into the
+        ledger: used only when no overload controller owns that fold."""
+        ten = self.tenancy
+        if ten is None or not self._native_readers_active \
+                or not hasattr(self.aggregator, "tenant_params"):
+            return
+        try:
+            base_rate, weights = ten.native_params()
+            self.aggregator.tenant_params(base_rate, weights)
+            ten.update_table(self.aggregator.tenant_table())
+            if drain:
+                drained = self.aggregator.admission_drain()
+                if self._overload is not None:
+                    self._overload.fold_native_counts(drained)
+                elif drained.get("tenants"):
+                    ten.fold_native(drained["tenants"])
+        except Exception as e:
+            log.warning("tenant sync failed: %s", e)
+
     # -- tag exclusion wiring (server.go:1467-1510) -------------------------
     def _wire_excluded_tags(self):
         base: List[str] = []
@@ -937,7 +1220,14 @@ class Server:
     def _process_packets(self, data: bytes) -> None:
         """reference server.go:1081 processMetricPacket + SplitBytes. With
         the native engine, the whole buffer (splitting included) is handled
-        in C++; only events/service checks come back up."""
+        in C++; only events/service checks come back up. With an overload
+        controller the buffer is admitted (or shed, counted per class and
+        tenant) before the parse: the cost refused is the parse itself.
+        Ring traffic never reaches here; with overload_native_admission
+        the same decision runs in the C++ rings."""
+        if self._overload is not None \
+                and not self._overload.admit(data, "statsd"):
+            return
         if self._native:
             for special in self.aggregator.feed(data):
                 self.handle_metric_packet(special)
@@ -1062,6 +1352,19 @@ class Server:
             return
         now = time.time()
         self.last_flush = now
+        # self-adjusting key tables: a due capacity change executes at
+        # this swap boundary (tables/growth.py, the one grow site), so the
+        # grow pause is the swap pause
+        grow_targets = None
+        if self.tables is not None:
+            try:
+                grow_targets = self.tables.plan(self.aggregator)
+            except Exception:
+                log.exception("table grow planning failed; interval "
+                              "flushes at current capacities")
+        # the interval's owning aggregator rides the flush job: after a
+        # grow, the detached interval's flush math runs against the old
+        # spec's backend, not the one just installed
         agg = self.aggregator
         # the ingest-drain phase: how long the interval's device state
         # takes to detach from the hot path (the only flush work that
@@ -1069,24 +1372,42 @@ class Server:
         # first child span and the phase=ingest_drain timer
         swap_t0 = time.perf_counter_ns()
         try:
-            state, table = agg.swap()
+            if grow_targets:
+                from veneur_tpu_torch.tables import grow_swap, grown_spec
+                state, table, agg = grow_swap(
+                    self, grown_spec(agg.spec, grow_targets))
+            else:
+                state, table = agg.swap()
         except Exception as e:
             log.exception("flush swap failed")
+            if grow_targets:
+                # a grow the device cannot hold (tables/growth.py built
+                # nothing into place): the interval stays live, and the
+                # ceiling drops to the capacities it has, so the next
+                # flush swaps at them instead of failing again
+                from veneur_tpu_torch.tables.growth import spec_capacities
+                caps = spec_capacities(agg.spec)
+                self.tables.max_capacity = max(caps[k] for k in grow_targets)
             req.finish(False, f"swap failed: {e}")
             return
         swap_ns = time.perf_counter_ns() - swap_t0
+        if grow_targets:
+            self.tables.note_grow(grow_targets, swap_ns)
         self._t_flush_phase.observe(swap_ns, phase="ingest_drain")
         # snapshot pipeline-owned counters here: the native engine's
         # stats call isn't safe to interleave with feed()
+        # lifetime counters from the installed backend (a grow carries
+        # them over to it)
+        cur = self.aggregator
         stats = {
             "swap_ns": swap_ns,
-            "h2d_bytes": agg.h2d_bytes,
+            "h2d_bytes": cur.h2d_bytes,
             "packets_received": self.packets_received,
             "packets_dropped": self.packets_dropped,
             "packets_toolong": self.packets_toolong,
-            "parse_errors": self.parse_errors + agg.extra_parse_errors(),
-            "processed": agg.processed + 0,
-            "dropped": agg.dropped_capacity,
+            "parse_errors": self.parse_errors + cur.extra_parse_errors(),
+            "processed": cur.processed + 0,
+            "dropped": cur.dropped_capacity,
             "import_errors": self.import_errors,
             "imported_total": self.imported_total,
             "forward_errors": self.forward_errors,
@@ -1095,8 +1416,12 @@ class Server:
             "span_chan_cap_hits": self.span_pipeline.chan_cap_hits,
             "intervals_deferred": self.flush_intervals_deferred,
             "sink_flushes_skipped": self.sink_flushes_skipped,
-            "set_shift": agg.last_set_shift,
+            "set_shift": cur.last_set_shift,
         }
+        if agg is not self.aggregator:
+            # a grow retired `agg`: no later step copies out of its
+            # pinned buffers, and none still in flight may outlive them
+            agg.wait_copies()
         self._flush_jobs.put_nowait((agg, state, table, stats, now, req))
 
     # -- listeners ----------------------------------------------------------
@@ -1494,6 +1819,19 @@ class Server:
         if self._ckpt_writer is not None and self.cfg.restore_on_start:
             self._restore_from_checkpoint()
             self._restore_complete = True  # /readyz gates on this
+        if self._overload is not None:
+            # the poller pushes the degradation knobs into the aggregator
+            # each tick; active_set_shift latches at the next swap, so the
+            # 2^k flush correction always matches what was staged
+            def _push_degrade(ov):
+                self.aggregator.degraded_timer_rate = ov.degraded_timer_rate()
+                self.aggregator.pending_set_shift = ov.degraded_set_shift()
+                # ring admission rides the same tick: push the state and
+                # bucket knobs down, fold the exact decisions back up
+                self._sync_native_admission(ov)
+
+            self._overload.start(self.cfg.overload_poll_interval_s,
+                                 on_poll=_push_degrade)
         t = threading.Thread(target=self._pipeline_loop, daemon=True,
                              name="pipeline")
         t.start()
@@ -1584,6 +1922,12 @@ class Server:
                 self._threads.append(lt)
 
         if native_reader_fds:
+            # tenant identity and quarantine live in the multi-ring
+            # engine's admission path: the config lands before any ring
+            # thread exists, and one ring with tenancy still runs the vrm
+            # engine (force_rings), not the tenant-blind vr one
+            if self.tenancy is not None:
+                self._push_tenant_config()
             # +1 so the kernel flags (MSG_TRUNC) any datagram OVER the
             # limit; the C++ reader drops it whole and counts toolong —
             # the same guard as the Python reader / the reference
@@ -1591,8 +1935,15 @@ class Server:
                 native_reader_fds,
                 max_len=(self.cfg.metric_max_length or 65536) + 1,
                 n_rings=n_rings,
-                pin_cores=list(self.cfg.reader_pin_cores) or None)
+                pin_cores=list(self.cfg.reader_pin_cores) or None,
+                force_rings=self.tenancy is not None)
             self._native_readers_active = True
+            # arm ring admission from the first datagram: the poller's
+            # first tick is up to a poll interval away
+            if self._overload is not None:
+                self._sync_native_admission(self._overload)
+            else:
+                self._sync_native_tenancy(drain=False)
 
         # SSF span listeners (networking.go:198 StartSSF)
         self.span_pipeline.start()
@@ -1735,8 +2086,12 @@ class Server:
         engine, and POST /import): enqueue onto the pipeline thread
         (importsrv/server.go:102 SendMetrics → IngestMetrics). Returns
         True, the gRPC service's ack, for a folded batch and for a
-        suppressed duplicate alike: nothing sheds an import here
-        (overload admission waits for A11)."""
+        suppressed duplicate alike; False when CRITICAL overload sheds
+        the batch (HTTP answers 503, the enveloped gRPC service
+        RESOURCE_EXHAUSTED, so the sender retries elsewhere or later)."""
+        if self._overload is not None \
+                and not self._overload.admit_import(len(metrics)):
+            return False
         if self._dedup_check(envelope):
             return True
         self.packet_queue.put(_ImportBatch(metrics))
@@ -1746,7 +2101,10 @@ class Server:
     def import_bytes(self, data: bytes, envelope=None) -> bool:
         """Raw-bytes gRPC import entry (native decode path): the pipeline
         thread hands the serialized MetricList straight to the engine's
-        importer. Same dedup contract as import_metrics."""
+        importer. Same shed and dedup contract as import_metrics."""
+        if self._overload is not None \
+                and not self._overload.admit_import():
+            return False
         if self._dedup_check(envelope):
             return True
         self.packet_queue.put(_ImportBytes(data))
@@ -1814,6 +2172,18 @@ class Server:
             log.warning("manual flush did not complete: %s", req.detail)
         return ok
 
+    def trigger_table_grow(self, targets: dict, wait: bool = True,
+                           timeout: Optional[float] = None):
+        """Force a per-kind key-table capacity change at the next flush
+        boundary (tables/growth.py executes it inside the swap's
+        quiesce). With wait=True returns the flush result like
+        trigger_flush."""
+        if self.tables is None:
+            raise RuntimeError("table growth is disabled "
+                               "(table_grow_enabled: false)")
+        self.tables.force(targets)
+        return self.trigger_flush(wait=wait, timeout=timeout)
+
     def _flush_worker(self):
         """Dedicated flush thread: drains detached intervals and runs the
         full flush fan-out. Serializes overlapping flushes; a slow sink
@@ -1841,6 +2211,13 @@ class Server:
         # in _flush_worker (state already swapped; next interval clean)
         FAULTS.inject(FLUSH_WORKER)
         flush_t0 = time.perf_counter()
+        # tenant ledger and mirror sync when the overload poller does not
+        # already fold it each tick (tenancy without the controller, or
+        # native admission off)
+        if self.tenancy is not None and not (
+                self._overload is not None
+                and self.cfg.overload_native_admission):
+            self._sync_native_tenancy(drain=True)
         # stamp with the interval's swap time, not the job's run time — a
         # queued interval must not shift into the next time bucket
         ts = int(swapped_at)
@@ -1886,6 +2263,14 @@ class Server:
         else:
             flush_arrays, table = agg.compute_flush(
                 state, table, self.cfg.percentiles, history=self.history)
+        if self.tables is not None:
+            try:
+                # idle census over the detached table: exact
+                # evicted_total and the shrink demand signal
+                self.tables.census_flush(table, swapped_at)
+            except Exception:
+                log.exception("table census failed; eviction accounting "
+                              "skipped this interval")
         self._t_flush_phase.observe(time.perf_counter_ns() - dev_t0,
                                     phase="device_update")
         if trace:
@@ -1896,13 +2281,19 @@ class Server:
         # writes this one again; offer() never blocks (bounded queue,
         # drop-oldest with exact accounting), so watches cannot stretch
         # the flush deadline. The interval's ring window seq is pinned
-        # now: a later flush advances the ring before the engine runs.
+        # now: a later flush advances the ring before the engine runs. At
+        # overload CRITICAL the evaluation is shed outright (counted).
         if self.watch_engine is not None:
-            hist_seq = (self.history.seq - 1
-                        if self.history is not None
-                        and self.history.armed else None)
-            self.watch_engine.offer(
-                state, table, int(stats.get("set_shift", 0)), ts, hist_seq)
+            if (self._overload is not None
+                    and self._overload.state >= CRITICAL):
+                self.watch_engine.skip_interval("overload CRITICAL")
+            else:
+                hist_seq = (self.history.seq - 1
+                            if self.history is not None
+                            and self.history.armed else None)
+                self.watch_engine.offer(
+                    state, table, int(stats.get("set_shift", 0)), ts,
+                    hist_seq)
         # exactly-once forwarding: export + stage this interval's unit
         # under a fresh (epoch, seq) BEFORE the checkpoint build, so the
         # snapshot's spill chunk carries the payload with its envelope
@@ -1955,6 +2346,18 @@ class Server:
             generate = generate_frame
         else:
             generate = generate_intermetrics
+        # degraded-aggregation correction: the interval staged set
+        # members subsampled at 2^-shift (Aggregator._set_admit), so the
+        # flushed estimate is multiplied back by 2^shift. Forward and
+        # checkpoint carry the raw registers, untouched; a new dict and a
+        # new array, because the checkpoint may still hold the originals.
+        flush_degraded = False
+        set_shift = int(stats.get("set_shift", 0))
+        if set_shift > 0 and flush_arrays.get("set_estimate") is not None:
+            flush_arrays = dict(flush_arrays)
+            flush_arrays["set_estimate"] = (
+                flush_arrays["set_estimate"] * (1 << set_shift))
+            flush_degraded = True
         fb_t0 = time.perf_counter_ns()
         fbsp = stage("frame_build") if trace else None
         final = generate(
@@ -1968,6 +2371,18 @@ class Server:
         if fbsp is not None:
             fbsp.set_tag("rows", str(len(final)))
             fbsp.client_finish(self.trace_client)
+        # flush protection: at CRITICAL, low-priority rows are withheld
+        # from the sinks and plugins; the device update, forward and
+        # checkpoint above already ran, so no aggregated data is lost,
+        # only its low-priority publication this interval
+        if self._overload is not None and final \
+                and self._overload.state >= CRITICAL:
+            final, n_shed = self._flush_protect(final)
+            if n_shed:
+                self._overload.count_flush_shed(n_shed)
+                flush_degraded = True
+        if flush_degraded and self._overload is not None:
+            self._overload.note_degraded_flush()
         if final:
             # parallel sink flushes + barrier with a per-interval join
             # budget (flusher.go:105-115). Slow-sink containment:
@@ -2046,11 +2461,44 @@ class Server:
             root.set_tag("h2d_bytes", str(h2d_delta))
         root.client_finish(self.trace_client)
 
+    def _flush_protect(self, final):
+        """Filter low-priority rows out of a flush result (MetricFrame or
+        InterMetric list): keeps self-metrics and any row carrying a
+        `shed_priority_tags` match. Returns (filtered, n_dropped)."""
+        high = tuple(self.cfg.shed_priority_tags)
+
+        def keep(name, tags):
+            if name.startswith("veneur."):
+                return True
+            return any(h in t for h in high for t in tags)
+
+        from veneur_tpu_torch.server.flusher import FrameSegment, MetricFrame
+        if isinstance(final, MetricFrame):
+            segs, dropped = [], 0
+            for seg in final.segments:
+                keep_idx = [i for i, m in enumerate(seg.metas)
+                            if keep(seg.names[i], m.tags)]
+                dropped += len(seg.names) - len(keep_idx)
+                if not keep_idx:
+                    continue
+                if len(keep_idx) == len(seg.names):
+                    segs.append(seg)
+                    continue
+                segs.append(FrameSegment(
+                    [seg.names[i] for i in keep_idx],
+                    seg.values[keep_idx], seg.mtype,
+                    [seg.metas[i] for i in keep_idx], seg.is_status))
+            return MetricFrame(final.timestamp, final.hostname,
+                               segs), dropped
+        kept = [m for m in final if keep(m.name, m.tags)]
+        return kept, len(final) - len(kept)
+
     # -- durability (persistence/) ------------------------------------------
     def _build_snapshot(self, agg, flush_arrays, table, raw, ts) -> dict:
         """The checkpoint snapshot of one flushed interval, with the
-        spill, forward, watch and history sidecars. `agg` owns the
-        interval and its spec. The spill is read here, after the
+        spill, forward, watch, history, tenant and key-table sidecars.
+        `agg` owns the interval and its spec (across a grow boundary, the
+        old spec, not self.aggregator's). The spill is read here, after the
         interval's unit was staged and before any send drains it."""
         from veneur_tpu_torch.persistence import build_snapshot
         spill_bytes, spill_n = None, 0
@@ -2063,7 +2511,9 @@ class Server:
             spill=spill_bytes, spill_entries=spill_n,
             forward_meta=self._forward_meta_snapshot(),
             watches=self._watch_snapshot(),
-            history=self._history_snapshot())
+            history=self._history_snapshot(),
+            tenants=self._tenant_snapshot(),
+            keytables=self._tables_snapshot())
 
     def _checkpoint_interval(self, agg, flush_arrays, table, raw,
                              ts) -> None:
@@ -2086,6 +2536,23 @@ class Server:
         if self.watch_engine is None:
             return None
         return self.watch_engine.snapshot()
+
+    def _tables_snapshot(self) -> Optional[dict]:
+        """Key-table growth state (the live per-kind capacities and the
+        exact accounting) for the "keytables" sidecar chunk: a restore
+        re-grows to these capacities before folding rows. None (chunk
+        omitted) when growth is off."""
+        if self.tables is None:
+            return None
+        return self.tables.snapshot_state(self.aggregator.spec)
+
+    def _tenant_snapshot(self) -> Optional[dict]:
+        """Tenant quarantine state (the engine table's mirror and the
+        exact demoted-row totals) for the "tenants" sidecar chunk. None
+        (chunk omitted) when tenancy is off."""
+        if self.tenancy is None:
+            return None
+        return self.tenancy.snapshot_state()
 
     def _history_snapshot(self) -> Optional[dict]:
         """The history ring (arrays and host key index) for the
@@ -2138,9 +2605,10 @@ class Server:
         """Fold the newest valid snapshot into the live aggregator.
         Corrupt snapshots are quarantined and counted inside
         restore_latest; any other failure cold-starts: a bad checkpoint
-        must never keep the server from serving. The tenant and
-        key-table sidecars of a JAX checkpoint belong to features not
-        ported yet (A11, A8) and are not read."""
+        must never keep the server from serving. The "keytables" sidecar
+        re-grows the tables before the fold; the "tenants" sidecar is
+        stashed for the engine's tenant table, which the rings' start
+        creates."""
         from veneur_tpu_torch.persistence import (fold_snapshot,
                                                   restore_latest,
                                                   restore_spill)
@@ -2152,6 +2620,20 @@ class Server:
                          self.cfg.checkpoint_dir)
                 return
             snap, path = found
+            if snap.get("keytables") and self.tables is not None:
+                # re-grow to the checkpoint's per-kind capacities before
+                # folding (startup: the pipeline is not running, so the
+                # swap boundary is quiescent). fold_snapshot works at any
+                # capacity; adopting first restores the headroom.
+                from veneur_tpu_torch.tables import adopt_capacities
+                kt = snap["keytables"]
+                try:
+                    adopt_capacities(self, dict(kt.get("capacities")
+                                                or {}))
+                    self.tables.restore_state(kt)
+                except Exception:
+                    log.exception("keytables sidecar not adopted; "
+                                  "restoring at config capacities")
             fwd_meta = snap.get("forward") or None
             # skip re-folding forward-only rows iff their payloads travel
             # by the spill replay instead: an exactly-once sender staged
@@ -2176,6 +2658,13 @@ class Server:
                 # the ring survives the restart byte for byte; a spec
                 # mismatch keeps the fresh ring (history is a cache)
                 self.history.restore(snap["history"])
+            if snap.get("tenants") and self.tenancy is not None:
+                # quarantine survives the restart: the entries are pushed
+                # into the engine right after tenant_config creates its
+                # table (start(), before the rings), so demotion resumes
+                # from the first datagram
+                self._tenant_restore_entries = \
+                    self.tenancy.restore_state(snap["tenants"])
             self._c_ckpt_restores.inc()
             log.info("restored %d metrics from %s (interval_ts=%d)",
                      n, path, snap["interval_ts"])
@@ -2690,6 +3179,29 @@ class Server:
                     "aborting", missed)
                 os._exit(3)
 
+    def _drain_admission_at_shutdown(self) -> None:
+        """The last admission drain before the rings stop: decisions since
+        the last poll tick land in the ledgers (per tenant too), and the
+        quarantine mirror is current for the shutdown checkpoint."""
+        if self._overload is not None:
+            try:
+                self._overload.fold_native_counts(
+                    self.aggregator.admission_drain())
+            except Exception:
+                log.exception("native admission drain failed")
+        elif self.tenancy is not None:
+            try:
+                drained = self.aggregator.admission_drain()
+                if drained.get("tenants"):
+                    self.tenancy.fold_native(drained["tenants"])
+            except Exception:
+                log.exception("tenant drain failed")
+        if self.tenancy is not None:
+            try:
+                self.tenancy.update_table(self.aggregator.tenant_table())
+            except Exception:
+                log.exception("tenant table snapshot failed")
+
     def shutdown(self, device_timeout: float = 180.0):
         """reference server.go:1418 Shutdown (graceful).
 
@@ -2712,6 +3224,7 @@ class Server:
                 self._packets_received += rc["datagrams"]
                 self._packets_dropped_py += rc["ring_dropped"]
                 self._packets_toolong_py += rc["toolong"]
+                self._drain_admission_at_shutdown()
             self._native_readers_active = False
         for s in self._sockets:
             try:
@@ -2730,6 +3243,8 @@ class Server:
         # behind the sentinel: the span pipeline (extraction loop-back)
         self.trace_client.close()
         self.span_pipeline.stop()
+        if self._overload is not None:
+            self._overload.stop()
         if self._stats_sock is not None:
             self._stats_sock.close()   # eagerly created in __init__
             self._stats_sock = None

@@ -194,6 +194,17 @@ class WatchEngine:
                 self.intervals_skipped += 1
                 self._count_skipped_interval()
 
+    def skip_interval(self, reason: str) -> None:
+        """Overload-CRITICAL skip: the flush worker sheds the watch
+        evaluation instead of offering the interval. Counted (one
+        suppressed per active watch), never silent."""
+        with self._lock:
+            if not self._watches:
+                return
+        self.intervals_skipped += 1
+        self._count_skipped_interval()
+        log.debug("watch evaluation skipped for one interval: %s", reason)
+
     def _count_skipped_interval(self) -> None:
         if self._c_suppressed is None:
             return
