@@ -267,6 +267,34 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    freed before the next. The kernels line carries them as
    fused_ingest's `grown_offsets`, and phase 13's launches.
 
+14. (run after phase 13) sharding and the collective global tier, every
+   tile on the one card:
+   a. BASELINE config 12's Server at tpu_n_shards 4: phase 9's config
+   (native ingest, the default widths) takes phase 8's datagrams through
+   its UDP listener with the split emit, again with
+   native_preshard_enabled, and a third time through four reader rings
+   (rings_inject, each name's lines on one ring; the pre-sharded ring
+   drain). Each flush holds phase 4's oracles (counters exact against
+   the f64 oracle, gauges the last write, p50 within 6% and p99 within
+   1%), equals phase 9's single-shard flush in counters, gauges and set
+   estimates, and its set words equal the register max of the lines'
+   members hashed on the host; K1 launches once a sharded step (the S
+   tiles flattened into one launch) and K2 once in the merged flush. K1
+   is held byte-exact to its plain version on the second step's state and
+   streams (S = 4 tiles, four times a single step's lanes) and K2 on the
+   merged flush's rows, each timed as phase 3 times them.
+   b. BASELINE config 11's collective tier at (R, S) = (2, 4): phase
+   11's 65 locals absorbed co-located by a global Server with
+   collective_enabled, the 65th through a local Server with
+   collective_attach (its flush hands the interval over), the 64 others'
+   flush outputs through absorb_raw. The global's flush must equal phase
+   11's gRPC-imported flush of the same locals in counters and histogram
+   count/min/max, keep a local's write for every gauge, take no wire
+   import, and keep the worst p99 error against the midpoint quantiles
+   of the locals' samples within max(1%, 1.5x phase 11's). Prints the
+   absorbed rows/s, the tier's stage, all_to_all_route and replica_merge
+   phase times and the merged flush's ms.
+
 With `--k1-ab TREE ...` the script instead times K1 at the default
 shape in each source tree in turn (phase 3's kernel_ingest, a process
 each), to compare two commits on one card in one call.
@@ -1610,7 +1638,7 @@ def _cli_daemon(lines) -> dict:
     return dict(first_flush_s=flushed_s, tsv_rows=rows, exit_code=rc)
 
 
-def server_path(device, lines, udp_ims) -> dict:
+def server_path(device, lines, udp_ims, keep=None) -> dict:
     """The Server on `device` at the default widths, the way the default
     config runs it: phase 4's lines in phase 8's datagrams through its
     UDP listener (the C++ reader, the pipeline thread's pump(20), K1 on
@@ -1661,6 +1689,8 @@ def server_path(device, lines, udp_ims) -> dict:
         _check(launches["digest_quantiles"] >= 1,
                "server: K2 never launched by the flush")
         checked = _check_server_flush(res, table, lines, "server")
+        if keep is not None:
+            keep.update(_kv_rows(res, table))
         ims = _app_ims(sink)
         # the server's sink takes a columnar frame, whose rows are
         # grouped by kind and aggregate: compare by key
@@ -2665,10 +2695,11 @@ def _global_interval(seed: int, shape: dict):
             np.asarray([float(t) for t in text], np.float32))
 
 
-def _global_locals(device, seeds, shape):
+def _global_locals(device, seeds, shape, kept=None):
     """Each seed's interval through one NativeAggregator (`feed`, then a
     flush with want_raw) and the port's export_metrics: the serialized
-    MetricList a local forwards, and its raw timer samples."""
+    MetricList a local forwards, and its raw timer samples. With `kept`,
+    each local's (raw, table) is appended to it too."""
     from veneur_tpu_torch.forward.convert import export_metrics
     from veneur_tpu_torch.proto import forwardrpc_pb2 as fpb
     from veneur_tpu_torch.server.native_aggregator import NativeAggregator
@@ -2679,6 +2710,8 @@ def _global_locals(device, seeds, shape):
         lines, names, vals = _global_interval(s, shape)
         loc.feed(lines)
         _res, table, raw = loc.flush([0.5], want_raw=True)
+        if kept is not None:
+            kept.append((raw, table))
         lists.append(fpb.MetricList(metrics=export_metrics(
             raw, table, spec.compression, spec.hll_precision))
             .SerializeToString())
@@ -2771,19 +2804,23 @@ def _import(srv, lists, json_body=None) -> float:
     return time.perf_counter() - t0
 
 
-def _flush_raw(srv, label: str) -> tuple:
+def _flush_raw(srv, label: str, want_raw: bool = False) -> tuple:
     """One manual flush: its wall ms, each flush phase's ms, and the
-    flush's own (res, table, raw) (raw None when no checkpoint was due).
-    A wrapper already on the aggregator (`_count_flushes`) stays on."""
+    flush's own (res, table, raw) (raw None when the Server did not ask
+    for the raw rows and `want_raw` is off; with it on, the flush gathers
+    them and the Server gets what it asked for). A wrapper already on the
+    aggregator (`_count_flushes`) stays on."""
     agg = srv.aggregator
     captured = []
     orig = agg.compute_flush
     wrapped = "compute_flush" in vars(agg)
 
     def capture(state, table, percentiles, **kw):
-        out = orig(state, table, percentiles, **kw)
+        asked = kw.get("want_raw", False)
+        out = orig(state, table, percentiles,
+                   **dict(kw, want_raw=asked or want_raw))
         captured.append(out if len(out) == 3 else (*out, None))
-        return out
+        return out if asked else out[:2]
     agg.compute_flush = capture
     before = _phase_sums(srv)
     t0 = time.perf_counter()
@@ -2977,8 +3014,10 @@ def _replay(device, lists, json_body, counter_want) -> dict:
 
 
 def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
-                     n_tail=GLOBAL_TAIL_LOCALS) -> dict:
-    """Phase 11: the global tier on the card (see the module docstring)."""
+                     n_tail=GLOBAL_TAIL_LOCALS, keep=None) -> dict:
+    """Phase 11: the global tier on the card (see the module docstring).
+    With `keep`, the locals' flush outputs, raw timer samples and the
+    first flush's rows are left in it for phase 14b."""
     import shutil
     import tempfile
     import torch
@@ -2990,8 +3029,9 @@ def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
     spec = _default_spec()
     p = spec.hll_precision
     t0 = time.perf_counter()
+    kept = [] if keep is not None else None
     lists, samples = _global_locals(device, range(1000, 1001 + n_locals),
-                                    shape)
+                                    shape, kept)
     json_list, lists = lists[-1], lists[:-1]
     json_body = json.dumps(to_json_metrics(list(
         fpb.MetricList.FromString(json_list).metrics))).encode()
@@ -3248,6 +3288,9 @@ def global_tier_path(device, clock_hz, shape=None, n_locals=GLOBAL_LOCALS,
     out["k2"] = _digest_case(device, k2_calls[0], clock_hz)
     out["k2_tail"] = _digest_case(device, k2_tail_calls[0], clock_hz)
     out["timer_error"] = _timer_errors(rows, samples, shape["timers"])
+    if keep is not None:
+        keep.update(locals=kept, rows=rows, samples=samples, shape=shape,
+                    timer_error=out["timer_error"])
     out.update(restore_ms=fold["ms"], restore_steps=restore_steps,
                restore_launches=restore_launches,
                launches_phase={k: out["launches"][k] + restore_launches[k]
@@ -4628,6 +4671,359 @@ def wide_offsets(device, clock_hz) -> list:
                 base, histo_capacity=4_600_000), "histo_capacity 4600000")]
 
 
+# -- phase 14: sharding and the collective global tier --------------------------
+
+# BASELINE config 12 (benchmarks/e2e.py config12) runs a Server at
+# tpu_n_shards 4; config 11 (config11_collective_merge) merges config 4's
+# 64 locals in a collective tier over a (2, 4) mesh (example.yaml
+# collective_* keys). One card holds every tile (ROADMAP C5).
+P14_SHARDS = 4
+P14_REPLICAS = 2
+P14_RINGS = 4
+
+
+def _kv_rows(res, table) -> dict:
+    """A flush's app counters, gauges and set estimates by kind and
+    (name, joined tags)."""
+    out = {"counter": {}, "gauge": {}, "set": {}}
+    for kind, key in (("counter", "counter"), ("gauge", "gauge"),
+                      ("set", "set_estimate")):
+        for i, (_s, m) in enumerate(table.get_meta(kind)):
+            if not m.name.startswith(("veneur.", "ssf.")):
+                out[kind][(m.name, m.joined_tags or "")] = float(res[key][i])
+    return out
+
+
+def _set_words_oracle(lines, precision: int) -> dict:
+    """{(name, joined tags): packed words} of every set key in `lines`:
+    the register max of its members' (register, rho), hashed on the host
+    with the engine's hash."""
+    from veneur_tpu_torch.ops import hll
+    from veneur_tpu_torch.utils.hashing import hll_reg_rho
+    dense = {}
+    for line in lines:
+        head, kind = line.split(b"|", 2)[:2]
+        if kind != b"s":
+            continue
+        name, member = head.split(b":", 1)
+        regs = dense.setdefault((name.decode(), ""), np.zeros(
+            1 << precision, np.uint8))
+        reg, rho = hll_reg_rho(member, precision)
+        regs[reg] = max(regs[reg], rho)
+    return {k: hll.pack_registers_np(v, precision) for k, v in dense.items()}
+
+
+def _flush_state(srv, label: str) -> tuple:
+    """One manual flush: its wall ms, each flush phase's ms, and the
+    flush's detached state with its (res, table)."""
+    agg = srv.aggregator
+    got = []
+    orig = agg.compute_flush
+
+    def capture(state, table, percentiles, **kw):
+        out = orig(state, table, percentiles, **kw)
+        got.append((state, out[0], out[1]))
+        return out
+    agg.compute_flush = capture
+    before = _phase_sums(srv)
+    t0 = time.perf_counter()
+    try:
+        _check(srv.trigger_flush(timeout=300), f"{label}: flush failed")
+    finally:
+        del agg.compute_flush
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    after = _phase_sums(srv)
+    _check(len(got) == 1, f"{label}: {len(got)} compute_flush calls")
+    return wall_ms, {k: (v - before.get(k, 0.0)) / 1e6
+                     for k, v in after.items()}, got[0]
+
+
+def _inject_waves(srv, waves) -> None:
+    """Every datagram of `_ring_waves` through its ring's admission
+    (rings_inject), retrying a full ring's backpressure (counted
+    nothing); the Server's pipeline thread pumps meanwhile."""
+    from veneur_tpu_torch.native import INJECT_BACKPRESSURE, INJECT_OK
+    eng = srv.aggregator.eng
+    for grams, _n in waves:
+        for r, g in grams:
+            v = eng.rings_inject(r, g)
+            while v == INJECT_BACKPRESSURE:
+                time.sleep(0.0005)
+                v = eng.rings_inject(r, g)
+            _check(v == INJECT_OK, f"sharded rings: inject verdict {v}")
+
+
+def _sharded_run(device, lines, label, p9, words, rings=0, capture=None,
+                 **kw) -> dict:
+    """One Server at tpu_n_shards 4 (phase 9's config otherwise): the
+    lines through its UDP listener paced as phase 8 paces them, or with
+    `rings` through that many reader rings (each name's lines on one
+    ring), then one flush, held to phase 4's oracles, to phase 9's
+    single-shard flush and to the lines' set words. With `capture`, the
+    second K1 launch's state and streams and the flush's K2 inputs are
+    kept in it."""
+    import torch
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+    from veneur_tpu_torch.server.native_aggregator import (
+        NativeShardedAggregator)
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+
+    srv = Server(_server_config(profile_capture_enabled=False,
+                                tpu_n_shards=P14_SHARDS,
+                                reader_rings=max(rings, 1), **kw),
+                 metric_sinks=[DebugMetricSink()], device=device)
+    srv.start()
+    orig_k1 = cuda_ingest.fused_ingest
+    try:
+        agg = srv.aggregator
+        _check(type(agg) is NativeShardedAggregator
+               and agg.n_shards == P14_SHARDS,
+               f"{label}: backend {type(agg).__name__}")
+        if capture is not None:
+            seen = [0]
+
+            def k1(state, streams, sp):
+                seen[0] += 1
+                if seen[0] == 2:
+                    capture["k1"] = (type(state)(*(t.clone() for t in state)),
+                                     type(streams)(*(t.clone()
+                                                     for t in streams)), sp)
+                return orig_k1(state, streams, sp)
+            cuda_ingest.fused_ingest = k1
+        cuda_ingest.launches = cuda_digest.launches = 0
+        steps0 = agg.steps_total
+        base = _lines_seen(agg)
+        t0 = time.perf_counter()
+        if rings:
+            _inject_waves(srv, _ring_waves(lines, rings, spread=False))
+        else:
+            _send_paced(srv, _datagrams(lines), label)
+        _wait_seen(srv, base, len(lines), label)
+        ingest_s = time.perf_counter() - t0
+        flush_ms, phases, (state, res, table) = _flush_state(srv, label)
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches}
+        cuda_ingest.fused_ingest = orig_k1
+        steps = agg.steps_total - steps0
+        _check(launches["fused_ingest"] == steps > 0,
+               f"{label}: {launches['fused_ingest']} K1 launches for "
+               f"{steps} steps (one a sharded step)")
+        _check(launches["digest_quantiles"] == 1,
+               f"{label}: {launches['digest_quantiles']} K2 launches in the "
+               "merged flush")
+        checked = _check_server_flush(res, table, lines, label)
+        rows = _kv_rows(res, table)
+        for kind in ("counter", "gauge", "set"):
+            _check(rows[kind] == p9[kind], f"{label}: {kind}s differ from "
+                   f"phase 9's single-shard flush ({len(rows[kind])} vs "
+                   f"{len(p9[kind])} keys)")
+        # the set words, from the same detached state again (the timed
+        # flush gathered no raw rows), with K2's inputs captured
+        with digest_calls() as calls:
+            again, tb, raw = agg.compute_flush(state, table, PERCENTILES,
+                                               want_raw=True)
+        _check(all(np.asarray(again[k]).tobytes()
+                   == np.asarray(res[k]).tobytes() for k in res),
+               f"{label}: the repeated flush differs")
+        got_words = {(m.name, m.joined_tags or ""): raw["hll"][i]
+                     for i, (_s, m) in enumerate(tb.get_meta("set"))
+                     if not m.name.startswith(("veneur.", "ssf."))}
+        _check(sorted(got_words) == sorted(words) and all(
+            np.array_equal(got_words[k], w) for k, w in words.items()),
+            f"{label}: set words differ from the lines' register max")
+        if capture is not None:
+            capture["k2"] = calls[0]
+        return dict(lines=len(lines), steps=steps, launches=launches,
+                    ingest_s=ingest_s, samples_per_s=len(lines) / ingest_s,
+                    flush_ms=flush_ms,
+                    device_update_ms=phases.get("device_update"),
+                    h2d_bytes=agg.h2d_bytes, rings=rings,
+                    preshard=agg.preshard, set_keys=len(words),
+                    **{k: v for k, v in checked.items()
+                       if k.startswith("worst") or k in (
+                           "counters", "gauges", "timers", "sets")})
+    finally:
+        cuda_ingest.fused_ingest = orig_k1
+        srv.shutdown()
+        torch.cuda.empty_cache()
+
+
+def sharded_path(device, clock_hz, lines, p9) -> dict:
+    """Phase 14a: the Server at tpu_n_shards 4 on phase 4's lines, split
+    emit, pre-sharded emit, and four reader rings; then K1 at the
+    flattened S = 4 step's shape and K2 at the merged flush's, each held
+    to its plain version and timed."""
+    spec = _default_spec()
+    words = _set_words_oracle(lines, spec.hll_precision)
+    cap = {}
+    out = {"split": _sharded_run(device, lines, "sharded split", p9, words,
+                                 capture=cap)}
+    out["preshard"] = _sharded_run(device, lines, "sharded preshard", p9,
+                                   words, native_preshard_enabled=True)
+    out["rings"] = _sharded_run(device, lines, "sharded rings", p9, words,
+                                rings=P14_RINGS,
+                                native_preshard_enabled=True)
+    state, streams, fspec = cap.pop("k1")
+    out["k1"] = _ingest_streams_case(state, streams, fspec, device,
+                                     clock_hz, plain_reps=1)
+    out["k1"]["shape"] = dict(tiles=P14_SHARDS, rows=fspec.counter_capacity,
+                              lanes=[int(t.numel()) for t in
+                                     (streams.c_slot, streams.g_slot,
+                                      streams.s_slot, streams.h_slot)])
+    del state, streams
+    out["k2"] = _digest_case(device, cap.pop("k2"), clock_hz)
+    out["launches"] = {k: sum(r["launches"][k] for r in (
+        out["split"], out["preshard"], out["rings"]))
+        for k in ("fused_ingest", "digest_quantiles")}
+    return out
+
+
+def collective_path(device, p11) -> dict:
+    """Phase 14b: phase 11's 64 locals and its 65th absorbed co-located
+    into a CollectiveGlobalTier at (R, S) = (2, 4) on the card: the 65th
+    local's lines through a local Server with collective_attach (its
+    flush hands the interval over through _absorb_colocated), the 64
+    others' flush outputs through absorb_raw, as their Servers' absorbs
+    make it; then the global's flush, held to phase 11's gRPC-imported
+    flush of the same 65 locals."""
+    import torch
+    from veneur_tpu_torch.collective.tier import CollectiveGlobalTier
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest, hll
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+
+    shape = p11["shape"]
+    gsrv = Server(_server_config(
+        profile_capture_enabled=False, collective_enabled=True,
+        collective_group="phase14", tpu_n_shards=P14_SHARDS,
+        tpu_n_replicas=P14_REPLICAS), metric_sinks=[DebugMetricSink()],
+        device=device)
+    lsrv = Server(_server_config(profile_capture_enabled=False,
+                                collective_attach="phase14"),
+                  metric_sinks=[DebugMetricSink()], device=device)
+    gsrv.start()
+    lsrv.start()
+    out = {}
+    try:
+        tier = gsrv.aggregator
+        _check(isinstance(tier, CollectiveGlobalTier)
+               and (tier.n_replicas, tier.n_shards)
+               == (P14_REPLICAS, P14_SHARDS),
+               f"collective: backend {type(tier).__name__}")
+        cuda_ingest.launches = cuda_digest.launches = 0
+        tsteps0, lsteps0 = tier.steps_total, lsrv.aggregator.steps_total
+        # the last local (phase 11's JSONMetric one, seed 1000 + n - 1)
+        # comes through the local Server
+        locs = p11["locals"]
+        last = _global_interval(1000 + len(locs) - 1,
+                                shape)[0].split(b"\n")
+        base = _lines_seen(lsrv.aggregator)
+        _send_paced(lsrv, _datagrams(last), "collective local")
+        _wait_seen(lsrv, base, len(last), "collective local")
+        _check(lsrv.trigger_flush(timeout=300), "collective: local flush")
+        _check(lsrv._c_coll_rows.value() > 0
+               and lsrv._c_coll_errors.value() == 0,
+               "collective: the local Server's flush was not absorbed")
+        t0 = time.perf_counter()
+        rows_in = 0
+        for raw, table in locs[:-1]:
+            rows_in += tier.absorb_raw(raw, table,
+                                       participant=tier.assign_participant())
+        with tier._absorb_lock:      # the staged tail's routed step too
+            tier._emit_absorbed()
+        torch.cuda.synchronize()
+        absorb_s = time.perf_counter() - t0
+        flush_ms, phases, (res, table, raw) = _flush_raw(
+            gsrv, "collective", want_raw=True)
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches}
+        steps = (tier.steps_total - tsteps0
+                 + lsrv.aggregator.steps_total - lsteps0)
+        _check(launches["fused_ingest"] == steps > 0,
+               f"collective: {launches['fused_ingest']} K1 launches for "
+               f"{steps} steps")
+        _check(launches["digest_quantiles"] == 2,
+               f"collective: {launches['digest_quantiles']} K2 launches for "
+               "the local's and the tier's flush")
+        _check(gsrv.imported_total == 0 and gsrv.import_errors == 0,
+               f"collective: {gsrv.imported_total} wire imports")
+        rows = _global_rows(res, table, raw)
+        want = p11["rows"]
+        _check(rows["histogram"] == want["histogram"],
+               "collective: histogram count/min/max differ from phase 11's "
+               "gRPC flush")
+        # counters exact, the byte counters past 2^24 too
+        _check(sorted(rows["counter"]) == sorted(want["counter"]),
+               "collective: counter keys differ")
+        bad = [k for k, v in want["counter"].items()
+               if rows["counter"][k] != v]
+        _check(not bad, f"collective: {len(bad)} counters differ from "
+               f"phase 11's gRPC flush, e.g. {bad[:3]}")
+        # sets: the tier's words are the register max of the 65 locals'
+        # flushed words, its estimates those words' within rtol 1e-6
+        # (ROADMAP C-watch 7); set keys are phase 11's
+        prec = tier.spec.hll_precision
+        regs = {}
+        for lraw, tb in locs:
+            for i, (_s, m) in enumerate(tb.get_meta("set")):
+                if m.name.startswith(("veneur.", "ssf.")):
+                    continue
+                key = (m.name, ",".join(m.tags))
+                r = hll.unpack_registers_np(np.asarray(lraw["hll"][i]), prec)
+                regs[key] = r if key not in regs else np.maximum(regs[key],
+                                                                 r)
+        keys = sorted(regs)
+        _check(sorted(rows["words"]) == keys == sorted(want["set"]),
+               "collective: set keys differ from the locals' and phase 11's")
+        words = np.stack([rows["words"][k] for k in keys])
+        _check(np.array_equal(words, hll.pack_registers_np(
+            np.stack([regs[k] for k in keys]), prec)),
+            "collective: set words differ from the locals' register max")
+        est = hll.estimate_packed_rows(torch.from_numpy(words).to(device),
+                                       precision=prec).cpu().numpy()
+        set_gap = max(abs(rows["set"][k] - float(e)) / max(float(e), 1e-30)
+                      for k, e in zip(keys, est))
+        _check(set_gap <= 1e-6, f"collective: a set estimate is "
+               f"{set_gap:.3g} from its words' estimate")
+        words_as_phase11 = sum(np.array_equal(rows["words"][k],
+                                              want["words"][k]) for k in keys)
+        written = {}
+        for raw, tb in p11["locals"]:
+            for i, (_s, m) in enumerate(tb.get_meta("gauge")):
+                written.setdefault((m.name, ",".join(m.tags)), set()).add(
+                    float(raw["gauge"][i]))
+        _check(sorted(rows["gauge"]) == sorted(want["gauge"]) and all(
+            v in written[k] for k, v in rows["gauge"].items()),
+            "collective: a gauge is no local's write")
+        err = _timer_errors(rows, p11["samples"], shape["timers"])
+        worst11 = p11["timer_error"]["p99"]["max"]
+        _check(err["p99"]["max"] <= max(0.01, 1.5 * worst11),
+               f"collective: worst p99 error {err['p99']['max']:.4f}, "
+               f"phase 11's gRPC flush {worst11:.4f}")
+        timer = tier._phase_timer
+        sums = {lv[0]: st.sum / 1e6 for lv, st in timer.snapshot(qs=())}
+        counts = {lv[0]: st.count for lv, st in timer.snapshot(qs=())}
+        out.update(locals=len(locs), rows_absorbed=rows_in + int(
+            lsrv._c_coll_rows.value()), absorb_s=absorb_s,
+            absorbed_rows_per_s=rows_in / absorb_s, flush_ms=flush_ms,
+            device_update_ms=phases.get("device_update"),
+            phase_ms=sums, phase_counts=counts, steps=steps,
+            launches=launches, imported_total=gsrv.imported_total,
+            counters=len(rows["counter"]), counters_past_2_24=sum(
+                v >= (1 << 24) for v in want["counter"].values()),
+            sets=len(keys), set_estimate_worst_rel=set_gap,
+            set_words_as_phase11=words_as_phase11,
+            gauges=len(rows["gauge"]),
+            histograms=len(rows["histogram"]), timer_error=err,
+            timer_error_phase11=p11["timer_error"])
+        return out
+    finally:
+        lsrv.shutdown()
+        gsrv.shutdown()
+        torch.cuda.empty_cache()
+
+
 def k1_ab(trees) -> None:
     """K1 at the default shape (phase 3's kernel_ingest: a warm default
     table, the main path's Zipf batch and the hot batch, each held
@@ -4733,7 +5129,8 @@ def main() -> int:
 
     lap("8")
     # phase 9, after phase 8: the Server and the CLI on the card
-    srv = server_path(device, lines, udp_ims)
+    p9_rows = {}
+    srv = server_path(device, lines, udp_ims, keep=p9_rows)
     del udp_ims
     print("server path:", json.dumps(srv))
     print(f"server path on {card}: {srv['samples_per_s']:.0f} samples/s "
@@ -4832,7 +5229,8 @@ def main() -> int:
     # phase 11: the global tier (64 locals -> 1 global), its checkpoint
     # and a restart
     lap("3 and 7")
-    glob = global_tier_path(device, clock_hz)
+    p11_keep = {}
+    glob = global_tier_path(device, clock_hz, keep=p11_keep)
     print("global tier path:", json.dumps(glob))
     gl = glob["launches_phase"]
     print(f"global tier on {card}: {glob['metrics_per_s']:.0f} metrics/s, "
@@ -4906,6 +5304,35 @@ def main() -> int:
           f"launches, K2 {p13['digest_quantiles']}")
     lap("13")
 
+    # phase 14: sharding (tpu_n_shards 4) and the collective global tier
+    shard = sharded_path(device, clock_hz, lines, p9_rows)
+    print("sharded path (tpu_n_shards 4):", json.dumps(shard))
+    coll = collective_path(device, p11_keep)
+    del p11_keep
+    print("collective tier path (R 2, S 4):", json.dumps(coll))
+    p14 = {k: shard["launches"][k] + coll["launches"][k]
+           for k in ("fused_ingest", "digest_quantiles")}
+    ph = coll["phase_ms"]
+    print(f"sharded path on {card}: " + ", ".join(
+        f"{name} {shard[name]['samples_per_s']:.0f} samples/s, flush "
+        f"{shard[name]['flush_ms']:.1f} ms" for name in
+        ("split", "preshard", "rings")) + f" (phase 9, one shard: "
+        f"{srv['samples_per_s']:.0f} samples/s, flush "
+        f"{srv['flush_ms']:.1f} ms); K1 at the S = 4 step "
+        f"{shard['k1']['device_ms']:.4f} ms on the card (bound "
+        f"{shard['k1']['bound_ms']:.4f}), K2 at the merged flush "
+        f"{shard['k2']['device_ms']:.4f} ms. Collective tier: "
+        f"{coll['absorbed_rows_per_s']:.0f} absorbed rows/s "
+        f"({coll['rows_absorbed']} rows of 65 locals, phase 11's gRPC "
+        f"import {glob['metrics_per_s']:.0f} metrics/s); stage "
+        f"{ph.get('stage', 0.0):.1f} ms, all_to_all_route "
+        f"{ph.get('all_to_all_route', 0.0):.1f} ms, replica_merge "
+        f"{ph.get('replica_merge', 0.0):.1f} ms, merged flush "
+        f"{coll['flush_ms']:.1f} ms; {coll['imported_total']} wire "
+        f"imports; launches K1 {p14['fused_ingest']}, K2 "
+        f"{p14['digest_quantiles']}")
+    lap("14")
+
     src = "veneur_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_ingest", route="cuda",
@@ -4919,7 +5346,8 @@ def main() -> int:
                  "10": tiers["launches"]["fused_ingest"],
                  "11": gl["fused_ingest"],
                  "12": fl["fused_ingest"],
-                 "13": p13["fused_ingest"]},
+                 "13": p13["fused_ingest"],
+                 "14": p14["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None,
@@ -4928,7 +5356,10 @@ def main() -> int:
                  "bound_by", "max_run")},
              grown_offsets=[{k: o[k] for k in (
                  "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-                 "bound_ms", "bound_by")} for o in offsets]),
+                 "bound_ms", "bound_by")} for o in offsets],
+             sharded_step={k: shard["k1"][k] for k in (
+                 "shape", "max_abs_err", "ms", "device_ms", "checks_ms",
+                 "plain_ms", "bound_ms", "bound_by", "max_run")}),
         dict(name="digest_quantiles", route="cuda",
              source=src + "digest_quantiles.cu",
              replaces="veneur_tpu/ops/pallas_digest.py:189",
@@ -4940,11 +5371,16 @@ def main() -> int:
                  "10": tiers["launches"]["digest_quantiles"],
                  "11": gl["digest_quantiles"],
                  "12": fl["digest_quantiles"],
-                 "13": p13["digest_quantiles"]},
+                 "13": p13["digest_quantiles"],
+                 "14": p14["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],
-             bound_by=digests[0]["bound_by"], library_ms=None),
+             bound_by=digests[0]["bound_by"], library_ms=None,
+             merged_flush={k: shard["k2"][k] for k in (
+                 "rows", "cells", "q", "max_abs_err", "ms", "device_ms",
+                 "plain_ms", "bound_ms", "bound_by", "live_p50",
+                 "live_p99")}),
         dict(name="merge_windows", route="cuda",
              source=src + "merge_windows.cu",
              replaces="veneur_tpu/ops/pallas_history.py:92",

@@ -49,7 +49,10 @@ machine has no JAX.)
   Server that flush the same tail;
 - the forward tier on the card against the same tier on the CPU: two
   local Servers forward exactly once through a ProxyServer to two global
-  Servers, which flush the same InterMetrics and set words.
+  Servers, which flush the same InterMetrics and set words;
+- the sharded step (every [R, S] tile in one K1 launch) and the merged
+  flush on the card against the same on the CPU, and the collective
+  tier at (R, S) = (2, 4) absorbing the same locals on both.
 """
 
 import time
@@ -1222,3 +1225,98 @@ def test_grow_on_the_card_matches_the_cpu(cuda):
                 assert abs(g.value - c.value) <= 1e-5 * c.value
             else:
                 assert g.value == c.value, g.name
+
+
+@pytest.mark.parametrize("r,s", [(1, 4), (2, 4)])
+def test_sharded_step_on_the_card_matches_the_cpu(cuda, r, s):
+    """Four steps of random tile batches (hot keys, negative and
+    overflowing slots) through the sharded step, one K1 launch each,
+    then the merged flush, on the card and on the CPU: every state leaf
+    byte-equal but the digest cells (the prologue's sums may place one a
+    cell over on the card, as in the slice test), counters and gauges
+    flushed equal, quantiles within 1e-2."""
+    from veneur_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(3)
+    steps = []
+    for i in range(4):
+        grid = [[_batch(rng, SPEC, b=512) for _ in range(s)]
+                for _ in range(r)]
+        steps.append((sharded.pack_tiles(sharded.stack_batches(grid, r, s),
+                                         i == 2),
+                      tstep.batch_sizes(grid[0][0]), i == 2))
+    out = {}
+    for dev in ("cpu", cuda):
+        st = sharded.sharded_empty_state(SPEC, r, s, dev)
+        cuda_ingest.launches = cuda_digest.launches = 0
+        for flat, sizes, compact in steps:
+            sharded.sharded_ingest_packed(st, torch.from_numpy(flat).to(dev),
+                                          spec=SPEC, sizes=sizes,
+                                          do_compact=compact)
+        res = tstep.combine_flush_scalars(sharded.merged_flush(
+            st, [0.5, 0.99], spec=SPEC, layout=sharded.Layout(r, s)))
+        out[str(dev)] = (convert.state_to_numpy(st), res,
+                         cuda_ingest.launches, cuda_digest.launches)
+    (cs, cres, _l, _d), (gs, gres, k1, k2) = out["cpu"], out[str(cuda)]
+    assert (k1, k2) == (4, 1)
+    for name, want in cs.items():
+        if name not in ("h_w", "h_wm"):
+            assert np.array_equal(gs[name], want, equal_nan=True), name
+    for key in ("counter", "gauge", "status", "histo_count"):
+        np.testing.assert_array_equal(gres[key], cres[key], err_msg=key)
+    np.testing.assert_allclose(gres["set_estimate"], cres["set_estimate"],
+                               rtol=1e-6)
+    np.testing.assert_allclose(gres["histo_quantiles"],
+                               cres["histo_quantiles"], rtol=1e-2,
+                               atol=1e-6, equal_nan=True)
+
+
+def test_collective_tier_on_the_card_matches_the_cpu(cuda):
+    """Four locals' flush outputs absorbed into a CollectiveGlobalTier at
+    (R, S) = (2, 4) on the card and on the CPU (routed steps, one K1
+    launch each): the same merged flush."""
+    from veneur_tpu_torch.collective.tier import CollectiveGlobalTier
+    from veneur_tpu_torch.server.aggregator import Aggregator as TAgg
+    spec = tstate.TableSpec(counter_capacity=1 << 10, gauge_capacity=256,
+                            status_capacity=64, set_capacity=64,
+                            histo_capacity=256)
+    bs = BatchSpec(counter=512, gauge=128, status=64, set=256, histo=1024,
+                   histo_stat=64)
+    locs = []
+    for p in range(4):
+        agg = TAgg(spec, bs, device="cpu")
+        lines = [b"c.%d:%d|c|#veneurglobalonly" % (i, i + p)
+                 for i in range(300)]
+        lines += [b"t.%d:%d|ms" % (i % 40, i * 7 % 500) for i in range(800)]
+        lines += [b"s.%d:m%d|s" % (i % 16, i + 1000 * p) for i in range(400)]
+        lines += [b"g.%d:%d|g|#veneurglobalonly" % (i, p) for i in range(50)]
+        for ln in lines:
+            agg.process_metric(parse_metric(ln))
+        st, tb = agg.swap()
+        _res, tb, raw = agg.compute_flush(st, tb, [0.5], want_raw=True)
+        locs.append((raw, tb))
+    out = {}
+    for dev in ("cpu", cuda):
+        tier = CollectiveGlobalTier(spec, bs, n_shards=4, n_replicas=2,
+                                    device=dev)
+        cuda_ingest.launches = 0
+        for raw, tb in locs:
+            tier.absorb_raw(raw, tb)
+        st, tb = tier.swap()
+        res, tb = tier.compute_flush(st, tb, [0.5, 0.99])
+        out[str(dev)] = ({(k, m.name): np.asarray(res[key][i])
+                          for k, key in (("counter", "counter"),
+                                         ("gauge", "gauge"),
+                                         ("set", "set_estimate"),
+                                         ("histogram", "histo_quantiles"))
+                          for i, (_s, m) in enumerate(tb.get_meta(k))},
+                         cuda_ingest.launches, tier.steps_total)
+    cpu, (gpu, k1, steps) = out["cpu"][0], out[str(cuda)]
+    assert k1 == steps > 0
+    assert sorted(gpu) == sorted(cpu)
+    for k, want in cpu.items():
+        if k[0] == "histogram":
+            np.testing.assert_allclose(gpu[k], want, rtol=1e-2, atol=1e-6)
+        elif k[0] == "set":
+            np.testing.assert_allclose(gpu[k], want, rtol=1e-6)
+        else:
+            assert np.array_equal(gpu[k], want), k

@@ -589,11 +589,7 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 
 # -- (g), (h) what the slice refuses ---------------------------------------------
 
-REFUSED = {
-    "collective_enabled": True,
-    "collective_attach": "default", "tpu_n_shards": 2,
-    "reshard_enabled": True, "tag_frequency_enabled": True,
-}
+REFUSED = {"reshard_enabled": True, "tag_frequency_enabled": True}
 
 
 def test_every_refused_key_is_listed():
@@ -623,6 +619,34 @@ def test_pressure_keys_build_a_server_that_runs_them(key):
     attr = {"overload_enabled": "_overload", "tenant_enabled": "tenancy",
             "table_grow_enabled": "tables"}[key]
     assert getattr(srv, attr) is not None
+    srv.start()
+    try:
+        assert srv.trigger_flush(timeout=60)
+    finally:
+        srv.shutdown()
+
+
+# the keys of sharding and the collective tier (ROADMAP A7), which the
+# slice now serves
+SHARDING = {"tpu_n_shards": ("ShardedAggregator", dict(tpu_n_shards=2)),
+            "collective_enabled": ("CollectiveGlobalTier",
+                                   dict(collective_enabled=True,
+                                        collective_group="keys-test",
+                                        tpu_n_shards=2, tpu_n_replicas=2)),
+            "collective_attach": ("NativeAggregator",
+                                  dict(collective_attach="keys-test"))}
+
+
+@pytest.mark.parametrize("key", sorted(SHARDING))
+def test_sharding_keys_build_a_server_that_runs_them(key):
+    assert key not in {k for k, _f, _i in tserver_mod.NOT_PORTED}
+    cls, extra = SHARDING[key]
+    kw = dict(SMALL, statsd_listen_addresses=[], ssf_listen_addresses=[],
+              http_address="", native_ingest=False, **extra)
+    if key == "collective_attach":
+        kw["native_ingest"] = True
+    srv = tserver_mod.Server(tconfig.Config(**kw), device="cpu")
+    assert cls in [c.__name__ for c in type(srv.aggregator).__mro__]
     srv.start()
     try:
         assert srv.trigger_flush(timeout=60)

@@ -273,12 +273,8 @@ class Batcher:
     def pending(self) -> int:
         return self.nc + self.ng + self.nst + self.ns + self.nh + self.nhs
 
-    def emit(self) -> Optional[Batch]:
-        """Build a padded Batch from staged samples, reset staging, pass it
-        to on_batch. Returns the Batch (None if nothing was staged)."""
-        if self.pending() == 0:
-            return None
-        batch = Batch(
+    def _staged(self) -> Batch:
+        return Batch(
             counter_slot=self.c_slot.copy(), counter_inc=self.c_inc.copy(),
             gauge_slot=self.g_slot.copy(), gauge_val=self.g_val.copy(),
             status_slot=self.st_slot.copy(), status_val=self.st_val.copy(),
@@ -291,6 +287,21 @@ class Batcher:
             histo_stat_max=self.hs_max.copy(),
             histo_stat_recip=self.hs_recip.copy(),
         )
+
+    def force_emit(self) -> Batch:
+        """Emit unconditionally (all padding when nothing is staged)
+        without calling on_batch: for callers that stack several
+        batchers' batches themselves (the sharded backends)."""
+        b = self.emit(notify=False)
+        return self._staged() if b is None else b
+
+    def emit(self, notify: bool = True) -> Optional[Batch]:
+        """Build a padded Batch from staged samples, reset staging, pass it
+        to on_batch (unless `notify` is False). Returns the Batch (None
+        if nothing was staged)."""
+        if self.pending() == 0:
+            return None
+        batch = self._staged()
         # reset padding sentinels for the next batch
         self.c_slot[:self.nc] = self.spec.counter_capacity
         self.g_slot[:self.ng] = self.spec.gauge_capacity
@@ -304,6 +315,6 @@ class Batcher:
         self.c_inc[:self.nc] = 0.0
         self.h_wt[:self.nh] = 0.0
         self.nc = self.ng = self.nst = self.ns = self.nh = self.nhs = 0
-        if self.on_batch is not None:
+        if notify and self.on_batch is not None:
             self.on_batch(batch)
         return batch

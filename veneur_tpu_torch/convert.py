@@ -7,7 +7,10 @@ the port's DeviceState on `device`; `state_to_numpy` is the reverse.
 `history_from_numpy` / `history_to_numpy` do the same for the history
 ring (the ``arrays`` of a HistoryWriter snapshot, in either package).
 Field names, dtypes and shapes are the same in both packages, so the
-round trips are byte-exact.
+round trips are byte-exact. A sharded state's leaves carry leading
+[R, S] dims in both packages and convert the same way; every leaf comes
+out contiguous, which is all the sharded step's flattened view needs
+(parallel/sharded.py flat_view).
 """
 
 from __future__ import annotations

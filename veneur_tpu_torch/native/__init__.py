@@ -71,6 +71,11 @@ def load() -> ctypes.CDLL:
         "vt_feed": (cint, [vp, ctypes.c_char_p, cint, cint,
                            ctypes.POINTER(cint)]),
         "vt_emit_packed": (None, [vp, i32p, i32p, u32p, u32p]),
+        "vt_emit": (None, [vp] + [vp] * 10 + [u32p]),
+        "vt_emit_sharded": (None, [vp] + [vp] * 10 + [i32p, u32p]),
+        "vrm_emit_sharded": (None, [vp, cint] + [vp] * 10 + [i32p, u32p]),
+        "vt_route_digest": (u32, [ctypes.c_char_p, cint, ctypes.c_char_p,
+                                  cint, ctypes.c_char_p, cint]),
         "vt_new_keys": (cint, [vp, ctypes.c_char_p, cint]),
         "vt_next_special": (cint, [vp, ctypes.c_char_p, cint]),
         "vt_slot_for": (ctypes.c_int32, [vp, cint, cint, ctypes.c_char_p,
@@ -149,6 +154,22 @@ def tenant_extract(tag: str, data: bytes) -> Optional[str]:
     return out.raw[:n].decode("utf-8", "surrogateescape")
 
 
+def route_digest(kind: str, name: str, joined_tags: str) -> int:
+    """The engine's routing digest (vt_route_digest: fnv1a-32 over name,
+    kind, joined tags), byte-identical to collective/keytable.py
+    route_digest."""
+    lib = load()
+    name_b = name.encode("utf-8", "surrogateescape")
+    kind_b = kind.encode("utf-8")
+    tags_b = joined_tags.encode("utf-8", "surrogateescape")
+    return int(lib.vt_route_digest(name_b, len(name_b), kind_b,
+                                   len(kind_b), tags_b, len(tags_b)))
+
+
+def _ptrs(arrays) -> list:
+    return [a.ctypes.data_as(ctypes.c_void_p) for a in arrays]
+
+
 def _i32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
@@ -180,15 +201,17 @@ _RING_STATS = ("ring_depth", "ring_highwater", "pump_batches", "pump_stalls",
 
 class NativeIngest:
     """One parser + key table + stager instance (the C++ counterpart of
-    aggregation/host.py KeyTable + Batcher), on one shard."""
+    aggregation/host.py KeyTable + Batcher). Its slot space is split into
+    `n_shards` shards by the host.py rule (slot = shard·per_shard +
+    local, shard = digest % n_shards)."""
 
-    def __init__(self, spec, bspec):
+    def __init__(self, spec, bspec, n_shards: int = 1):
         self._lib = load()
         self.spec = spec
         self.bspec = bspec
         self._h = self._lib.vt_new(
             spec.counter_capacity, spec.gauge_capacity, spec.set_capacity,
-            spec.histo_capacity, 1, spec.hll_precision,
+            spec.histo_capacity, n_shards, spec.hll_precision,
             bspec.counter, bspec.gauge, bspec.set, bspec.histo)
         self._keybuf = ctypes.create_string_buffer(1 << 20)
         self._specialbuf = ctypes.create_string_buffer(1 << 16)
@@ -226,6 +249,26 @@ class NativeIngest:
         counts = (ctypes.c_uint32 * 4)()
         self._lib.vt_emit_packed(self._h, _i32p(flat), _i32p(lane_offs),
                                  _u32p(prev_counts), counts)
+        return tuple(counts)
+
+    def emit_into(self, batcher_arrays) -> tuple:
+        """Copy the staged rows into numpy arrays and reset staging.
+        batcher_arrays is (c_slot, c_inc, g_slot, g_val, s_slot, s_reg,
+        s_rho, h_slot, h_val, h_wt); rows past each returned count are
+        left as they were. Returns (nc, ng, ns, nh)."""
+        counts = (ctypes.c_uint32 * 4)()
+        self._lib.vt_emit(self._h, *_ptrs(batcher_arrays), counts)
+        return tuple(counts)
+
+    def emit_sharded(self, batcher_arrays, bounds: np.ndarray) -> tuple:
+        """emit_into with the rows grouped by owner shard (stable, so
+        arrival order -- gauge last write -- holds within a shard) and
+        slots rebased shard-local. `bounds` (int32[4·(n_shards+1)], kinds
+        in counter/gauge/set/histo order) receives each kind's shard
+        prefix bounds. Returns (nc, ng, ns, nh)."""
+        counts = (ctypes.c_uint32 * 4)()
+        self._lib.vt_emit_sharded(self._h, *_ptrs(batcher_arrays),
+                                  _i32p(bounds), counts)
         return tuple(counts)
 
     def slot_for(self, kind: str, name: str, joined_tags: str, scope: int,
@@ -525,6 +568,16 @@ class NativeIngest:
         counts = (ctypes.c_uint32 * 4)()
         self._lib.vrm_emit(self._rings, ring, _i32p(flat), _i32p(lane_offs),
                            _u32p(prev_counts), counts)
+        return tuple(counts)
+
+    def rings_emit_sharded(self, ring: int, batcher_arrays,
+                           bounds: np.ndarray) -> tuple:
+        """emit_sharded for ring i's staging: the sharded backend's
+        per-ring drain."""
+        counts = (ctypes.c_uint32 * 4)()
+        self._lib.vrm_emit_sharded(self._rings, ring,
+                                   *_ptrs(batcher_arrays), _i32p(bounds),
+                                   counts)
         return tuple(counts)
 
     def rings_pause(self) -> None:

@@ -117,8 +117,11 @@ class Aggregator:
         # checkpoint-restore counter residuals (batcher, slot, lo), staged
         # in a second ingest step by restore_flush
         self._restore_residuals: list = []
-        # degraded aggregation knobs (pushed by an overload controller);
-        # the defaults are no-ops
+        self._init_degrade()
+
+    def _init_degrade(self) -> None:
+        """Degraded aggregation knobs (pushed by an overload controller);
+        the defaults are no-ops. Every backend's __init__ calls this."""
         self.degraded_timer_rate = 1.0
         self._degrade_seq = 0
         self.pending_set_shift = 0

@@ -36,7 +36,7 @@ BUILD_DATE = "dev"
 
 # (method, path) -> the ROADMAP item that ports the route's tier
 NOT_PORTED_ROUTES = {
-    ("POST", "/reshard"): "A8",
+    ("POST", "/reshard"): "A8b",
 }
 
 

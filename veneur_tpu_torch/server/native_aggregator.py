@@ -54,7 +54,9 @@ from veneur_tpu_torch.aggregation.step import (packed_layout,
                                                packed_rings_core,
                                                packed_step_core)
 from veneur_tpu_torch.native import NativeIngest
+from veneur_tpu_torch.parallel.sharded import KIND_CAPACITY
 from veneur_tpu_torch.server.aggregator import Aggregator, _PackBuffer
+from veneur_tpu_torch.server.sharded_aggregator import ShardedAggregator
 
 log = logging.getLogger("veneur_tpu_torch.server.native_aggregator")
 
@@ -68,10 +70,11 @@ _NATIVE_LANES = ("counter_slot", "counter_inc", "gauge_slot", "gauge_val",
 class NativeKeyTable:
     """KeyTable facade over the C++ slot maps + a Python status table."""
 
-    def __init__(self, spec: TableSpec, eng: NativeIngest):
+    def __init__(self, spec: TableSpec, eng: NativeIngest, n_shards: int = 1):
         self.spec = spec
         self.eng = eng
-        self.status = _KindTable(spec.status_capacity, 1)
+        self.n_shards = n_shards
+        self.status = _KindTable(spec.status_capacity, n_shards)
         # drained metadata: kind-table name -> [(slot, SlotMeta)]
         self.meta = {"counter": [], "gauge": [], "set": [], "histo": []}
         self.by_slot = {"counter": {}, "gauge": {}, "set": {}, "histo": {}}
@@ -496,6 +499,190 @@ class NativeAggregator(Aggregator):
         nothing resets here, so a datagram parsed after this instant
         lands after the snapshot (the ring path's analogue of the packet
         queue's FIFO order)."""
+        if self.eng.n_rings:
+            self._emit_rings()
+        self._emit_native()
+        return super().query_snapshot()
+
+
+class NativeShardedAggregator(ShardedAggregator):
+    """The sharded backend fed by the C++ parse/key/stage engine.
+
+    The engine's slot space is shard-aware (dogstatsd.cpp KindTable:
+    slot = shard·per_shard + local, the host.py rule), so its emitted
+    global slots split into (shard, local) with two vectorised numpy ops
+    and bulk-copy into the per-shard staging batchers. With `preshard`
+    the engine emits the rows already grouped by owner shard with
+    shard-local slots (vt_emit_sharded), and the batchers take contiguous
+    slices. Reader rings drain through the pre-sharded emit only, ring 0
+    first, each ring's rows staged into the batchers in turn, as the JAX
+    package's sharded backend drains them: which step a row lands in,
+    and so a digest's bytes, follow that order."""
+
+    def __init__(self, spec: TableSpec, bspec: BatchSpec = BatchSpec(),
+                 n_shards: int = 2, device=None, compact_every: int = 8,
+                 preshard: bool = False, engine=None):
+        super().__init__(spec, bspec, n_shards, device, compact_every)
+        # a handed-over engine (table growth) keeps its readers running
+        self.eng = engine if engine is not None \
+            else NativeIngest(spec, bspec, n_shards)
+        self.table = NativeKeyTable(spec, self.eng, n_shards)
+        self._py_processed = 0
+        self._py_dropped = 0
+        self.preshard = preshard
+        self._ps_bounds = np.zeros(4 * (n_shards + 1), np.int32)
+        b = bspec
+        # emit targets for the ten native lanes; rows past each emit's
+        # counts are never read
+        self._lanes = (np.empty(b.counter, np.int32),
+                       np.zeros(b.counter, np.float32),
+                       np.empty(b.gauge, np.int32),
+                       np.zeros(b.gauge, np.float32),
+                       np.empty(b.set, np.int32), np.zeros(b.set, np.int32),
+                       np.zeros(b.set, np.uint8),
+                       np.empty(b.histo, np.int32),
+                       np.zeros(b.histo, np.float32),
+                       np.zeros(b.histo, np.float32))
+
+    # engine-backed stats and the engine's push-downs, as NativeAggregator
+    _native_stat = NativeAggregator._native_stat
+    processed = NativeAggregator.processed
+    dropped_capacity = NativeAggregator.dropped_capacity
+    extra_parse_errors = NativeAggregator.extra_parse_errors
+    feed = NativeAggregator.feed
+    readers_start = NativeAggregator.readers_start
+    reader_counters = NativeAggregator.reader_counters
+    ring_stats = NativeAggregator.ring_stats
+    ring_stats_per_ring = NativeAggregator.ring_stats_per_ring
+    admission_set = NativeAggregator.admission_set
+    admission_drain = NativeAggregator.admission_drain
+    tenant_config = NativeAggregator.tenant_config
+    tenant_params = NativeAggregator.tenant_params
+    tenant_table = NativeAggregator.tenant_table
+    tenant_restore = NativeAggregator.tenant_restore
+    tenant_rows_drain = NativeAggregator.tenant_rows_drain
+    set_tenant = NativeAggregator.set_tenant
+    capacity_set = NativeAggregator.capacity_set
+    table_stats = NativeAggregator.table_stats
+    readers_stop = NativeAggregator.readers_stop
+
+    def _local(self, kind: str, slot: int):
+        """global slot -> (shard, local): the per-shard spec's widths, the
+        engine's own allocation rule (a NativeKeyTable has no .tables)."""
+        per = getattr(self.pspec,
+                      KIND_CAPACITY[KeyTable._table_name(kind)])
+        return slot // per, slot % per
+
+    def _split_shards(self, global_slots, per_shard):
+        """One-pass shard split of a staged slot lane: a stable argsort
+        groups rows by shard (keeping arrival order within a shard, which
+        gauge last-write depends on) and searchsorted finds each shard's
+        [start, end). Returns (order, local slots in that order, bounds)."""
+        sh = global_slots // per_shard
+        order = np.argsort(sh, kind="stable")
+        lo = (global_slots - sh * per_shard).astype(np.int32, copy=False)
+        bounds = np.searchsorted(sh, np.arange(self.n_shards + 1),
+                                 sorter=order)
+        return order, lo[order], bounds
+
+    # (batcher method, lane indexes into self._lanes) per kind, in the
+    # emit's counter/gauge/set/histo order
+    _KIND_LANES = (("add_counters_bulk", (0, 1)),
+                   ("add_gauges_bulk", (2, 3)),
+                   ("add_sets_bulk", (4, 5, 6)),
+                   ("add_histos_bulk", (7, 8, 9)))
+
+    def _stage_presharded(self, counts) -> None:
+        """Bulk-copy a pre-sharded emit (rows grouped by owner shard,
+        slots shard-local, per-kind bounds in _ps_bounds) into the
+        per-shard batchers: contiguous slices only."""
+        s = self.n_shards
+        for k, (n, (method, lanes)) in enumerate(zip(counts,
+                                                     self._KIND_LANES)):
+            if not n:
+                continue
+            at = self._ps_bounds[k * (s + 1):(k + 1) * (s + 1)]
+            for i in range(s):
+                if at[i + 1] > at[i]:
+                    getattr(self.batchers[i], method)(
+                        *[self._lanes[j][at[i]:at[i + 1]] for j in lanes])
+
+    def _emit_native(self) -> None:
+        if self.preshard:
+            counts = self.eng.emit_sharded(self._lanes, self._ps_bounds)
+            if sum(counts):
+                self._stage_presharded(counts)
+            return
+        counts = self.eng.emit_into(self._lanes)
+        p = self.pspec
+        for n, cap, (method, lanes) in zip(
+                counts, (p.counter_capacity, p.gauge_capacity,
+                         p.set_capacity, p.histo_capacity),
+                self._KIND_LANES):
+            if not n:
+                continue
+            order, lo, at = self._split_shards(self._lanes[lanes[0]][:n],
+                                               cap)
+            vals = [self._lanes[j][:n][order] for j in lanes[1:]]
+            for i in range(self.n_shards):
+                if at[i + 1] > at[i]:
+                    getattr(self.batchers[i], method)(
+                        lo[at[i]:at[i + 1]],
+                        *[v[at[i]:at[i + 1]] for v in vals])
+
+    # -- multi-ring reader group ---------------------------------------------
+    def rings_start(self, n_rings: int, fds=None, max_len: int = 65536,
+                    ring_cap: int = 65536, pin_cores=None) -> None:
+        self.eng.rings_start(n_rings, fds=fds, max_len=max_len,
+                             ring_cap=ring_cap, pin_cores=pin_cores)
+
+    def _emit_rings(self) -> bool:
+        emitted = False
+        for r in range(self.eng.n_rings):
+            counts = self.eng.rings_emit_sharded(r, self._lanes,
+                                                 self._ps_bounds)
+            if sum(counts):
+                self._stage_presharded(counts)
+                emitted = True
+        return emitted
+
+    def pump(self, max_wait_ms: int, max_emits: int = 8) -> List[bytes]:
+        """Drain the reader ring(s) into the per-shard batchers (bounded
+        as NativeAggregator.pump is)."""
+        if self.eng.n_rings:
+            self.eng.rings_wait(max_wait_ms)
+            for _ in range(max_emits):
+                if not self._emit_rings():
+                    break
+            return self.eng.drain_specials()
+        full, _st = self.eng.pump(max_wait_ms)
+        for _ in range(max_emits):
+            if not full:
+                break
+            self._emit_native()
+            full, _st = self.eng.pump(0)
+        if full:
+            self._emit_native()
+        return self.eng.drain_specials()
+
+    def swap(self):
+        rings = bool(self.eng.n_rings)
+        if rings:
+            self.eng.rings_pause()
+            self._emit_rings()
+        self._emit_native()
+        detached = self.table
+        detached.finalize()
+        state, _ = super().swap()
+        self.eng.reset()
+        self.table = NativeKeyTable(self.spec, self.eng, self.n_shards)
+        if rings:
+            self.eng.rings_resume()
+        return state, detached
+
+    def query_snapshot(self):
+        """NativeAggregator.query_snapshot's discipline over the per-shard
+        staging batchers."""
         if self.eng.n_rings:
             self._emit_rings()
         self._emit_native()

@@ -41,6 +41,14 @@ Maps the reference's Server (server.go:83 struct, :771 Start, :1303 Serve):
   passed their high-water mark swaps into a backend built at the grown
   capacities; the detached interval flushes against the old one, and
   the checkpoint's "keytables" chunk re-grows a restore before its fold.
+- Sharding (`tpu_n_shards` > 1; 0 takes one shard a card): the key table
+  split into shard tiles on the one device (server/sharded_aggregator.py,
+  the native engine's sharded emits). `collective_enabled` makes this
+  Server the collective global tier (collective/tier.py) over
+  (`tpu_n_replicas`, shards), registered in-process under
+  `collective_group`; a local with `collective_attach` hands each flush's
+  forwardable rows to it (no wire bytes) and falls back to its forward
+  path when the tier is absent or the absorb fails.
 
 The device state lives on `device`: the card unless the caller names
 another. The pipeline thread launches the ingest kernel (through the
@@ -93,10 +101,7 @@ MAX_UDP_SSF = 65536
 # Config keys whose feature is not ported yet: (key, is it set?, the
 # ROADMAP item that ports it). Each raises NotImplementedError in Server().
 NOT_PORTED = (
-    ("collective_enabled", lambda c: c.collective_enabled, "A7"),
-    ("collective_attach", lambda c: bool(c.collective_attach), "A7"),
-    ("tpu_n_shards", lambda c: c.tpu_n_shards > 1, "A7"),
-    ("reshard_enabled", lambda c: c.reshard_enabled, "A8"),
+    ("reshard_enabled", lambda c: c.reshard_enabled, "A8b"),
     ("tag_frequency_enabled", lambda c: c.tag_frequency_enabled, "A9"),
 )
 
@@ -223,7 +228,33 @@ class Server:
         self.hostname = cfg.hostname
         self.tags = list(cfg.tags)
         self._native_readers_active = False
-        self.aggregator, self._native = self._make_aggregator(1)
+        n_shards = max(1, cfg.tpu_n_shards)
+        if cfg.tpu_n_shards == 0 and self.device.type == "cuda":
+            # auto: one shard per card when several are attached
+            import torch
+            n_shards = max(1, torch.cuda.device_count())
+        self._collective_registered = ""
+        if cfg.collective_enabled:
+            # the collective global tier (collective/tier.py) over
+            # (tpu_n_replicas, shards): takes routed absorbs from
+            # co-located locals and merges the replica rows at flush
+            from veneur_tpu_torch.collective import tier as collective_tier
+            from veneur_tpu_torch.parallel import sharded
+            n_replicas = max(1, cfg.tpu_n_replicas)
+            if cfg.tpu_n_shards == 0:
+                n_shards = max(1, n_shards // n_replicas)
+            spec = spec_from_config(cfg)
+            while n_shards > 1 and not sharded.divides(spec, n_shards):
+                n_shards -= 1
+            self.aggregator = collective_tier.CollectiveGlobalTier(
+                spec, self._batch_spec(), n_shards=n_shards,
+                n_replicas=n_replicas, device=self.device,
+                compact_every=cfg.tpu_compact_every)
+            self._native = False
+            collective_tier.register(cfg.collective_group, self.aggregator)
+            self._collective_registered = cfg.collective_group
+        else:
+            self.aggregator, self._native = self._make_aggregator(n_shards)
         if cfg.profile_capture_enabled and self.device.type == "cuda":
             # GET /debug/profile captures from an HTTP thread
             from veneur_tpu_torch.observability import runtime
@@ -402,11 +433,14 @@ class Server:
         # -- self-adjusting key tables (tables/) ----------------------------
         # Off by default: no manager, no pressure ladder, and the flush
         # path's grow gate is a single `is not None` check.
+        # The collective tier does not resize live, so the manager is not
+        # armed there.
         self.tables = None
-        if cfg.table_grow_enabled:
+        if cfg.table_grow_enabled and not cfg.collective_enabled:
             from veneur_tpu_torch.tables import TableManager, TablePressure
             self.tables = TableManager(
                 self.aggregator.spec,
+                n_shards=getattr(self.aggregator, "n_shards", 1),
                 max_capacity=cfg.table_max_capacity,
                 idle_ttl_s=cfg.table_idle_ttl_s)
             if not self._native:
@@ -463,6 +497,9 @@ class Server:
         self._aux_lock = threading.Lock()
         self._sockets: List[socket.socket] = []
         self._forward_client = None
+        # participant row in an attached collective tier, assigned by the
+        # tier at the first co-located absorb
+        self._collective_participant = None
         self._grpc_server = None
         self.grpc_port = None
         self._httpd = None
@@ -533,24 +570,39 @@ class Server:
         # last: every attribute a collector closes over now exists
         self._register_collectors()
 
+    def _batch_spec(self) -> BatchSpec:
+        cfg = self.cfg
+        return BatchSpec(counter=cfg.tpu_batch_counter,
+                         gauge=cfg.tpu_batch_gauge,
+                         status=cfg.tpu_batch_status, set=cfg.tpu_batch_set,
+                         histo=cfg.tpu_batch_histo)
+
     def _make_aggregator(self, n_shards: int, engine=None, spec=None):
-        """The single-device backend from the current config: the C++
-        engine's NativeAggregator (native_ingest, the default) or the
-        Python-parsing Aggregator, on the server's device. Returns
-        (aggregator, is_native). tables/growth.py passes the running
-        `engine`, whose reader rings keep feeding the same handle across
-        the rebuild, and the grown `spec`. `n_shards` keeps the
-        reference's signature: this package serves one shard
-        (tpu_n_shards > 1 is refused at construction)."""
+        """The backend for `n_shards` from the current config, on the
+        server's device: with n_shards > 1 the sharded backend
+        (NativeShardedAggregator with native_ingest, the default, else
+        ShardedAggregator), otherwise the C++ engine's NativeAggregator or
+        the Python-parsing Aggregator. Returns (aggregator, is_native).
+        tables/growth.py passes the running `engine`, whose reader rings
+        keep feeding the same handle across the rebuild, and the grown
+        `spec`. The collective tier has its own construction path in
+        __init__ and does not resize live."""
         cfg = self.cfg
         args = dict(
             spec=spec if spec is not None else spec_from_config(cfg),
-            bspec=BatchSpec(counter=cfg.tpu_batch_counter,
-                            gauge=cfg.tpu_batch_gauge,
-                            status=cfg.tpu_batch_status,
-                            set=cfg.tpu_batch_set,
-                            histo=cfg.tpu_batch_histo),
-            device=self.device, compact_every=cfg.tpu_compact_every)
+            bspec=self._batch_spec(), device=self.device,
+            compact_every=cfg.tpu_compact_every)
+        n_shards = max(1, int(n_shards))
+        if n_shards > 1:
+            if cfg.native_ingest:
+                from veneur_tpu_torch.server.native_aggregator import (
+                    NativeShardedAggregator)
+                return NativeShardedAggregator(
+                    n_shards=n_shards, preshard=cfg.native_preshard_enabled,
+                    engine=engine, **args), True
+            from veneur_tpu_torch.server.sharded_aggregator import (
+                ShardedAggregator)
+            return ShardedAggregator(n_shards=n_shards, **args), False
         if cfg.native_ingest:
             from veneur_tpu_torch.server.native_aggregator import (
                 NativeAggregator)
@@ -589,12 +641,16 @@ class Server:
             "veneur.forward.envelope_rejected_total",
             "forward imports rejected for malformed or out-of-bound "
             "(source_id, epoch, seq) envelopes — never folded")
-        M.counter("veneur.collective.absorbed_rows_total",
-                  "forwardable rows handed to the co-located collective "
-                  "tier as device arrays instead of gRPC")
-        M.counter("veneur.collective.absorb_errors_total",
-                  "co-located collective absorbs that failed (the interval "
-                  "falls back to the wire forward path)")
+        # the co-located collective absorb (collective/tier.py),
+        # registered with the tier off too, so the inventory is stable
+        self._c_coll_rows = M.counter(
+            "veneur.collective.absorbed_rows_total",
+            "forwardable rows handed to the co-located collective tier "
+            "as device arrays instead of gRPC")
+        self._c_coll_errors = M.counter(
+            "veneur.collective.absorb_errors_total",
+            "co-located collective absorbs that failed (the interval "
+            "falls back to the wire forward path)")
         self._c_flush_count = M.counter(
             "veneur.flush.completed_total",
             "flush intervals run to completion (success or failure)")
@@ -614,9 +670,12 @@ class Server:
             "veneur.sink.flush_duration_ns",
             "one sink flush call, success or failure",
             labelnames=("sink",))
-        M.timer("veneur.collective.phase_duration_ns",
-                "collective tier phase wall time: stage, all_to_all_route, "
-                "replica_merge, flush", labelnames=("phase",))
+        # injected into an attached tier (set_phase_timer), so the tier
+        # module stays registry-free
+        self._t_coll_phase = M.timer(
+            "veneur.collective.phase_duration_ns",
+            "collective tier phase wall time: stage, all_to_all_route, "
+            "replica_merge, flush", labelnames=("phase",))
         # native ring emit latency, observed as a per-flush delta
         # average of the C++ emit_packed counters (zero hot-path cost)
         self._t_ring_emit = M.timer(
@@ -2256,7 +2315,8 @@ class Server:
                     and self._flushes_since_ckpt + 1
                     >= max(1, self.cfg.checkpoint_interval_flushes))
         raw = None
-        if self._forward_client is not None or ckpt_due:
+        if (self._forward_client is not None or ckpt_due
+                or self.cfg.collective_attach):
             flush_arrays, table, raw = agg.compute_flush(
                 state, table, self.cfg.percentiles, want_raw=True,
                 history=self.history)
@@ -2298,7 +2358,23 @@ class Server:
         # under a fresh (epoch, seq) BEFORE the checkpoint build, so the
         # snapshot's spill chunk carries the payload with its envelope
         # (_stage_forward_unit explains the crash-replay invariant)
-        if self._fwd_source_id is not None and raw is not None:
+        #
+        # co-located collective tier: hand this interval's forwardable rows
+        # to the in-process tier as device staging. A successful absorb IS
+        # the forward, so the wire path (stage + send) is skipped for the
+        # interval; a failure falls through to it untouched.
+        absorbed = False
+        if self.cfg.collective_attach and raw is not None:
+            # the absorb gets the flush.forward stage span the wire path
+            # would; the tier parents its absorb span onto it
+            asp = stage("forward")
+            asp.set_tag("transport", "colocated")
+            try:
+                absorbed = self._absorb_colocated(raw, table, span=asp)
+            finally:
+                asp.client_finish(self.trace_client)
+        if (self._fwd_source_id is not None and raw is not None
+                and not absorbed):
             self._stage_forward_unit(raw, table)
         if self._ckpt_writer is not None:
             if ckpt_due:
@@ -2306,7 +2382,7 @@ class Server:
                 self._flushes_since_ckpt = 0
             else:
                 self._flushes_since_ckpt += 1
-        if self._forward_client is not None:
+        if self._forward_client is not None and not absorbed:
             # fire-and-forget, concurrent with sink flushes
             # (flusher.go:84-95); the forward logs and counts its own
             # errors, and the flush thread never blocks on a slow global
@@ -2505,9 +2581,11 @@ class Server:
         if self.forward_spill is not None:
             spill_bytes = self.forward_spill.to_bytes()
             spill_n = len(self.forward_spill)
+        n_shards = getattr(agg, "n_shards", 1)
         return build_snapshot(
-            agg.spec, table, flush_arrays, raw, agg_kind="single",
-            n_shards=1, interval_ts=ts, hostname=self.hostname,
+            agg.spec, table, flush_arrays, raw,
+            agg_kind="sharded" if n_shards > 1 else "single",
+            n_shards=n_shards, interval_ts=ts, hostname=self.hostname,
             spill=spill_bytes, spill_entries=spill_n,
             forward_meta=self._forward_meta_snapshot(),
             watches=self._watch_snapshot(),
@@ -2677,6 +2755,37 @@ class Server:
             self._forward(raw, table, span=span)
         finally:
             span.client_finish(self.trace_client)
+
+    def _absorb_colocated(self, raw, table, span=None) -> bool:
+        """Hand this interval's forwardable rows to the co-located
+        collective tier (collective/tier.py) as device staging. True means
+        the tier took the interval and the wire path must not run
+        (staging it too would double-count the additive kinds); False
+        means no tier or a failed absorb, and the caller falls back to the
+        ordinary forward path. `span` is the local flush's forward stage
+        span, which the tier's absorb span parents onto."""
+        from veneur_tpu_torch.collective import tier as collective_tier
+        t = collective_tier.lookup(self.cfg.collective_attach)
+        if t is None:
+            # no co-located tier in this process (yet): the wire path
+            return False
+        # the registry-backed phase timer (idempotent: every local
+        # attaches the same server's timer)
+        t.set_phase_timer(self._t_coll_phase)
+        try:
+            if self._collective_participant is None:
+                self._collective_participant = t.assign_participant()
+            n = t.absorb_raw(raw, table,
+                             participant=self._collective_participant,
+                             parent_span=span,
+                             trace_client=self.trace_client)
+        except Exception:
+            self._c_coll_errors.inc()
+            log.exception("co-located collective absorb failed; interval "
+                          "falls back to the wire forward path")
+            return False
+        self._c_coll_rows.inc(n)
+        return True
 
     def _pump_traced(self, span):
         try:
@@ -3327,7 +3436,10 @@ class Server:
                     # unit with its envelope, and fold_snapshot(
                     # skip_forwarded) keeps its rows from re-exporting
                     # under a second seq
-                    if self._fwd_source_id is not None:
+                    absorbed = False
+                    if self.cfg.collective_attach:
+                        absorbed = self._absorb_colocated(raw, table)
+                    if self._fwd_source_id is not None and not absorbed:
                         self._stage_forward_unit(raw, table)
                     self._ckpt_writer.write_sync(self._build_snapshot(
                         agg, flush_arrays, table, raw, int(time.time())))
@@ -3357,3 +3469,7 @@ class Server:
             if quiesce.is_alive():
                 log.error("device did not quiesce within %.0fs",
                           device_timeout)
+        if self._collective_registered:
+            from veneur_tpu_torch.collective import tier as collective_tier
+            collective_tier.unregister(self._collective_registered,
+                                       self.aggregator)
