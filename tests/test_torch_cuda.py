@@ -52,7 +52,10 @@ machine has no JAX.)
   Servers, which flush the same InterMetrics and set words;
 - the sharded step (every [R, S] tile in one K1 launch) and the merged
   flush on the card against the same on the CPU, and the collective
-  tier at (R, S) = (2, 4) absorbing the same locals on both.
+  tier at (R, S) = (2, 4) absorbing the same locals on both;
+- count-min's update and estimate on the card, bit-equal to the same
+  calls on the CPU, and a Server resized live 4 -> 8 -> 2 on the card
+  flushing what the same run flushes on the CPU.
 """
 
 import time
@@ -1320,3 +1323,88 @@ def test_collective_tier_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_allclose(gpu[k], want, rtol=1e-6)
         else:
             assert np.array_equal(gpu[k], want), k
+
+
+def test_countmin_on_the_card_bit_equal_to_the_cpu(cuda):
+    """Count-min's update and estimate (ops/countmin.py) on the card:
+    the [depth, width] table after Zipf batches with padded items, and
+    each batch's estimates, bit-equal to the same calls on the CPU (the
+    counts are integers below 2^24, so the card's atomic add order
+    cannot change them)."""
+    from veneur_tpu_torch.ops import countmin
+    rng = np.random.default_rng(15)
+    tables = {d: countmin.empty_counters(4, 1 << 12, device=d)
+              for d in ("cpu", cuda)}
+    for _ in range(6):
+        members = [b"tag%d" % v for v in rng.zipf(1.2, 5000) % 30000]
+        cols = countmin.columns_for_batch(members, 4, 1 << 12)
+        cols[rng.random(len(members)) < 0.05] = -1          # padding
+        w = rng.integers(1, 4, len(members)).astype(np.float32)
+        est = {}
+        for d, t in tables.items():
+            tables[d], e = countmin.insert_and_estimate(
+                t, torch.from_numpy(cols).to(d), torch.from_numpy(w).to(d))
+            est[d] = e.cpu().numpy()
+        assert est["cpu"].tobytes() == est[cuda].tobytes()
+        assert tables["cpu"].numpy().tobytes() == \
+            tables[cuda].cpu().numpy().tobytes()
+    hh = countmin.HeavyHitters(k=5, width=1 << 12, device=cuda)
+    hh.update([b"hot"] * 300 + [b"t%d" % i for i in range(2000)])
+    assert hh.counters.device.type == "cuda"
+    assert hh.top(1) == [(b"hot", 300.0)]
+
+
+def _reshard_run(device):
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server.server import Server
+    from veneur_tpu_torch.sinks.debug import DebugMetricSink
+    sink = DebugMetricSink()
+    srv = Server(Config(
+        interval="3600s", statsd_listen_addresses=[], http_address="",
+        percentiles=[0.5, 0.99], tpu_n_shards=4, reshard_enabled=True,
+        tpu_counter_capacity=1 << 10, tpu_gauge_capacity=64,
+        tpu_status_capacity=16, tpu_set_capacity=64,
+        tpu_histo_capacity=256), metric_sinks=[sink], device=device)
+    srv.start()
+    rng = np.random.default_rng(3)
+    try:
+        summaries = []
+        for n in (8, 2, None):
+            lines = [b"rs.c%d:%d|c" % (i % 300, i) for i in range(900)]
+            lines += [b"rs.t%d:%d|ms" % (i % 20, v) for i, v in
+                      enumerate(rng.integers(1, 1000, 600))]
+            lines += [b"rs.s%d:m%d|s" % (i % 10, i) for i in range(500)]
+            want = srv.aggregator.processed + len(lines)
+            srv.packet_queue.put(b"\n".join(lines))
+            t0 = time.time()
+            while srv.aggregator.processed < want:
+                assert time.time() - t0 < 60, "lines not processed"
+                time.sleep(0.005)
+            if n is not None:
+                summaries.append(srv.trigger_reshard(n, timeout=120))
+        assert srv.trigger_flush(timeout=120)
+        return summaries, sorted(
+            ((m.name, m.tags, m.value) for m in sink.flushed
+             if m.name.startswith("rs.")), key=lambda t: t[:2])
+    finally:
+        srv.shutdown()
+
+
+def test_live_reshard_on_the_card_matches_the_cpu(cuda):
+    """A Server resized 4 -> 8 -> 2 between three intervals' worth of
+    lines on the card flushes what the same run on the CPU flushes: the
+    same migration summaries, counters and set estimates exact,
+    percentiles within 1e-2 (the fold re-adds digest cells)."""
+    want_sum, want = _reshard_run("cpu")
+    cuda_ingest.launches = cuda_digest.launches = 0
+    got_sum, got = _reshard_run(cuda)
+    assert cuda_ingest.launches > 0 and cuda_digest.launches >= 3
+    keys = ("plan", "units", "rows_folded", "rows_moved")
+    assert [{k: s[k] for k in keys} for s in got_sum] == \
+        [{k: s[k] for k in keys} for s in want_sum]
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    for (name, _tags, g), (_n, _t, w) in zip(got, want):
+        if name.endswith("percentile"):
+            assert abs(g - w) <= 1e-2 * abs(w) + 1e-6, name
+        else:
+            assert g == w, name

@@ -20,14 +20,15 @@
   Python parser;
 - (e) the registry's veneur.* names, and the families /metrics exposes,
   are the JAX package's less veneur.jax.*;
-- (f) the HTTP routes answer with the JAX package's codes (the query and
-  watch routes with their tiers off included), and the routes of tiers
-  not ported yet answer 501 naming their ROADMAP item; with
-  profile_capture_enabled, GET /debug/profile writes a torch.profiler
-  trace;
-- (g) each config key outside the slice raises NotImplementedError
-  naming its ROADMAP item; pallas_ingest_enabled: false changes nothing
-  on the CPU;
+- (f) the HTTP routes answer with the JAX package's codes (the query,
+  watch and reshard routes with their tiers off included), and a route
+  of a tier not ported would answer 501 naming its ROADMAP item (none is
+  left); with profile_capture_enabled, GET /debug/profile writes a
+  torch.profiler trace;
+- (g) a config key outside the slice would raise NotImplementedError
+  naming its ROADMAP item (none is left: resharding and tag frequency
+  build Servers that run them); pallas_ingest_enabled: false changes
+  nothing on the CPU;
 - (h) without a card, `Server(cfg)` and `Server(cfg, device="cuda")`
   raise.
 
@@ -556,7 +557,7 @@ SAME_CODE_ROUTES = [("GET", p) for p in (
     "/quitquitquit", "/watch", "/watch/stream")] + [
     ("POST", "/quitquitquit"), ("POST", "/nope"), ("DELETE", "/nope"),
     ("POST", "/query"), ("POST", "/watch"), ("DELETE", "/watch/1"),
-    ("POST", "/import")]
+    ("POST", "/import"), ("POST", "/reshard")]
 
 
 def test_http_routes_answer_as_the_jax_server(servers):
@@ -589,20 +590,51 @@ def test_debug_profile_writes_a_torch_profiler_trace(servers):
 
 # -- (g), (h) what the slice refuses ---------------------------------------------
 
-REFUSED = {"reshard_enabled": True, "tag_frequency_enabled": True}
+# every key the JAX Server serves is served: resharding (ROADMAP A8b)
+# and tag frequency (A9) were the last
+REFUSED = {}
 
 
 def test_every_refused_key_is_listed():
     assert sorted(REFUSED) == sorted(k for k, _f, _i in
-                                     tserver_mod.NOT_PORTED)
+                                     tserver_mod.NOT_PORTED) == []
+    assert thttp.NOT_PORTED_ROUTES == {}
 
 
-@pytest.mark.parametrize("key,item", [(k, i) for k, _f, i in
-                                      tserver_mod.NOT_PORTED])
-def test_keys_outside_the_slice_raise_naming_their_roadmap_item(key, item):
-    cfg = tconfig.Config(**dict(SMALL, **{key: REFUSED[key]}))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_keys_outside_the_slice_raise_naming_their_roadmap_item(
+        monkeypatch):
+    """The refusal itself: a key listed in NOT_PORTED raises naming its
+    item (none is listed now, so one is listed for the test)."""
+    monkeypatch.setattr(tserver_mod, "NOT_PORTED", (
+        ("tag_frequency_enabled", lambda c: c.tag_frequency_enabled,
+         "A9"),))
+    cfg = tconfig.Config(**dict(SMALL, tag_frequency_enabled=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tserver_mod.Server(cfg, device="cpu")
+
+
+# the keys of resharding (ROADMAP A8b) and tag frequency (A9), which the
+# slice now serves
+LIFTED_A8B_A9 = {"reshard_enabled": "reshard",
+                 "tag_frequency_enabled": "tag_frequency"}
+
+
+@pytest.mark.parametrize("key", sorted(LIFTED_A8B_A9))
+def test_reshard_and_tag_frequency_keys_build_a_server_that_runs_them(key):
+    kw = dict(SMALL, statsd_listen_addresses=[], ssf_listen_addresses=[],
+              http_address="", native_ingest=False, **{key: True})
+    srv = tserver_mod.Server(tconfig.Config(**kw), device="cpu")
+    assert getattr(srv, LIFTED_A8B_A9[key]) is not None
+    srv.start()
+    try:
+        if key == "reshard_enabled":
+            assert srv.trigger_reshard(2, timeout=60)["plan"] == "1->2"
+            assert srv.aggregator.n_shards == 2
+        else:
+            assert srv.tag_frequency in srv.span_pipeline.span_sinks
+        assert srv.trigger_flush(timeout=60)
+    finally:
+        srv.shutdown()
 
 
 # the keys of overload, tenancy (ROADMAP A11) and table growth (A8a),

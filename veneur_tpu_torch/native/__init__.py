@@ -118,6 +118,11 @@ def load() -> ctypes.CDLL:
         "vt_tenant_rows": (cint, [vp, i32p, u64p, cint]),
         "vrm_tenant_counters": (cint, [vp, cint, i32p, u64p, cint]),
         "vt_capacity_set": (None, [vp, u32, u32, u32, u32]),
+        "vt_shard_map_set": (None, [vp, u32]),
+        "vrm_shard_map_set": (None, [vp, u32]),
+        "vt_hash64_batch": (None, [ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_int64), cint,
+                                   u64p]),
         "vt_table_stats": (None, [vp, u64p]),
         "vrm_capacity_set": (None, [vp, u32, u32, u32, u32]),
         "vrm_table_stats": (None, [vp, u64p]),
@@ -152,6 +157,23 @@ def tenant_extract(tag: str, data: bytes) -> Optional[str]:
     if n <= 0:
         return None
     return out.raw[:n].decode("utf-8", "surrogateescape")
+
+
+def hash64_batch(members: List[bytes]) -> np.ndarray:
+    """FNV-1a 64 of each byte string in one call (vt_hash64_batch),
+    bit-identical to utils/hashing.py fnv1a_64: the count-min sketch's
+    member hashes."""
+    lib = load()
+    n = len(members)
+    offs = np.zeros(n + 1, np.int64)
+    if n:
+        np.cumsum([len(m) for m in members], out=offs[1:])
+    out = np.empty(n, np.uint64)
+    lib.vt_hash64_batch(
+        b"".join(members),
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+    return out
 
 
 def route_digest(kind: str, name: str, joined_tags: str) -> int:
@@ -382,6 +404,15 @@ class NativeIngest:
             self._lib.vrm_reset(self._rings)
         else:
             self._lib.vt_reset(self._h)
+
+    def shard_map_set(self, n_shards: int) -> None:
+        """Stage a new shard count; it takes effect at the next reset(),
+        inside the swap's quiesce, never at once. reshard/quiesce.py is
+        the one caller."""
+        if self._rings:
+            self._lib.vrm_shard_map_set(self._rings, int(n_shards))
+        else:
+            self._lib.vt_shard_map_set(self._h, int(n_shards))
 
     def capacity_set(self, counter: int, gauge: int, set_: int,
                      histo: int) -> None:

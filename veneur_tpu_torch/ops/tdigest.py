@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.ops import cuda_digest
-from veneur_tpu_torch.utils.numerics import twofloat_add
+from veneur_tpu_torch.utils.numerics import twofloat_add, twofloat_merge
 
 DEFAULT_COMPRESSION = 100.0
 # 3 cells per k-unit: finer interior cells shrink the interpolation bias
@@ -194,6 +194,29 @@ def compress_rows(mean, weight, *, compression: float = DEFAULT_COMPRESSION,
     return m_out.reshape(lead + (out_c,)), w_out.reshape(lead + (out_c,))
 
 
+def merge_tables(a: TDigestTable, b: TDigestTable, *,
+                 compression: float = DEFAULT_COMPRESSION,
+                 cells_per_k: int = DEFAULT_CELLS_PER_K,
+                 exact_extremes: int = DEFAULT_EXACT_EXTREMES
+                 ) -> TDigestTable:
+    """Key-wise merge of two digest tables (the reference's
+    samplers.go:726 Histo.Merge): both rows' cells compressed together,
+    so the union's bottom/top `exact_extremes` centroids pass through
+    unmerged; the scalar aggregates merge as two-float pairs."""
+    m2, w2 = compress_rows(torch.cat([a.mean, b.mean], dim=-1),
+                           torch.cat([a.weight, b.weight], dim=-1),
+                           compression=compression, cells_per_k=cells_per_k,
+                           out_c=a.mean.shape[-1],
+                           exact_extremes=exact_extremes)
+    ch, cl = twofloat_merge(a.count_hi, a.count_lo, b.count_hi, b.count_lo)
+    sh, sl = twofloat_merge(a.sum_hi, a.sum_lo, b.sum_hi, b.sum_lo)
+    rh, rl = twofloat_merge(a.recip_hi, a.recip_lo, b.recip_hi, b.recip_lo)
+    return TDigestTable(
+        mean=m2, weight=w2, min=torch.minimum(a.min, b.min),
+        max=torch.maximum(a.max, b.max), count_hi=ch, count_lo=cl,
+        sum_hi=sh, sum_lo=sl, recip_hi=rh, recip_lo=rl)
+
+
 def _interp(x, xp, fp):
     """jnp.interp over a batch of rows: x [..., Q], xp/fp [..., N] with xp
     non-decreasing; constant extrapolation at both ends."""
@@ -243,6 +266,28 @@ def quantiles(table: TDigestTable, qs) -> torch.Tensor:
         table.min.reshape(-1).contiguous(),
         table.max.reshape(-1).contiguous(), qs)
     return flat.reshape(lead + (qs.shape[0],))
+
+
+def cdf(table: TDigestTable, xs) -> torch.Tensor:
+    """The CDF of every digest at the points xs: f32[..., len(xs)], by
+    interpolation between centroid means (the x axis, with min and max as
+    endpoints) and their mass midpoints over the total. Empty digests
+    give NaN."""
+    mean, weight = table.mean, table.weight
+    xs_q = torch.as_tensor(xs, dtype=torch.float32, device=mean.device)
+    order = _argsort_stable(torch.where(weight > 0, mean, math.inf))
+    m = mean.gather(-1, order)
+    wo = weight.gather(-1, order)
+    w = torch.where(wo > 0, wo, 0.0)
+    tot = w.sum(dim=-1, keepdim=True)
+    mid = cumsum_f32(w, -1) - 0.5 * w
+    mn, mx = table.min[..., None], table.max[..., None]
+    px = torch.cat([mn, torch.where(w > 0, m, mx), mx], dim=-1)
+    py = torch.cat([torch.zeros_like(tot), torch.where(w > 0, mid, tot),
+                    tot], dim=-1)
+    x = xs_q.expand(tuple(mean.shape[:-1]) + (xs_q.shape[0],))
+    out = _interp(x, px, py) / torch.clamp(tot, min=1e-30)
+    return torch.where(tot > 0, out, math.nan)
 
 
 def add_batch_single(table: TDigestTable, values, weights, *,

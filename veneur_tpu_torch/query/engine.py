@@ -197,7 +197,7 @@ class QueryEngine:
 
     def __init__(self, server, *, max_batch: int = 64,
                  timeout_ms: float = 2.0, requests=None, batched=None,
-                 duration=None, history=None) -> None:
+                 duration=None, stale_reads=None, history=None) -> None:
         self._server = server
         self.spec = server.aggregator.spec
         self.device = server.aggregator.device
@@ -207,6 +207,7 @@ class QueryEngine:
         self._c_requests = requests
         self._c_batched = batched
         self._t_duration = duration
+        self._c_stale_reads = stale_reads
         self._queue: "queue_mod.Queue[Optional[_Item]]" = queue_mod.Queue()
         self._stop = threading.Event()
         self._sync = SampledSync(_SYNC_EVERY)
@@ -454,6 +455,16 @@ class QueryEngine:
             out = self._evaluate(batch, atomic=True)
         plans, res, qcol, set_shift, rinfo, rres, rqcol = out
         dur = time.perf_counter_ns() - t0
+        # stale-bounded availability during a live reshard: the serving
+        # table answers before every moved row has folded, so rows in
+        # flight may be missing for at most one flush interval. The
+        # answer is served all the same, and marked, so consumers can
+        # pin the guarantee. A range answer carries the mark too; only
+        # its newest window can miss rows (older ring columns predate
+        # the move).
+        stale = bool(getattr(self._server, "reshard_active", False))
+        if stale and self._c_stale_reads is not None:
+            self._c_stale_reads.inc(len(batch))
         for item, per_q in plans:
             results = []
             for qi, (rows, truncated, q) in enumerate(per_q):
@@ -469,6 +480,8 @@ class QueryEngine:
                 results.append(entry)
             item.result = {"results": results, "batched": total,
                            "set_shift": set_shift}
+            if stale:
+                item.result["stale_bounded"] = True
             if self._t_duration is not None:
                 self._t_duration.observe(dur)
             item.done.set()

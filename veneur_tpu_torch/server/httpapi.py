@@ -10,11 +10,13 @@ torch.profiler trace with CUDA activity), POST/GET /quitquitquit (gated
 on http_quit, server.go:80), POST /import (the global tier's import:
 JSONMetric arrays or a protobuf MetricList, optionally deflated), POST
 /query (gated on query_enabled; range
-queries also on history_enabled), and, gated on watch_enabled, POST
-/watch, GET /watch, DELETE /watch/<id> and GET /watch/stream (SSE).
+queries also on history_enabled), POST /reshard (gated on
+reshard_enabled), and, gated on watch_enabled, POST /watch, GET /watch,
+DELETE /watch/<id> and GET /watch/stream (SSE).
 
-Routes of tiers this package has not ported yet answer 501 and name the
-ROADMAP item that brings them (`NOT_PORTED_ROUTES`): POST /reshard.
+Routes of tiers this package has not ported yet would answer 501 and
+name the ROADMAP item that brings them (`NOT_PORTED_ROUTES`); every
+route of the JAX package's API is served.
 """
 
 from __future__ import annotations
@@ -35,9 +37,7 @@ log = logging.getLogger("veneur_tpu_torch.server.http")
 BUILD_DATE = "dev"
 
 # (method, path) -> the ROADMAP item that ports the route's tier
-NOT_PORTED_ROUTES = {
-    ("POST", "/reshard"): "A8b",
-}
+NOT_PORTED_ROUTES: dict = {}
 
 
 def _thread_dump() -> bytes:
@@ -268,6 +268,8 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
                     req_span.client_finish(server.trace_client)
             elif self.path == "/query":
                 self._handle_query()
+            elif self.path == "/reshard":
+                self._handle_reshard()
             elif self.path == "/watch":
                 self._handle_watch_register()
             elif self.path == "/quitquitquit" and server.cfg.http_quit:
@@ -294,6 +296,40 @@ def start_http_server(server, address) -> "http.server.ThreadingHTTPServer":
             except ValueError:
                 self._reply(400, b"bad JSON body")
                 return None
+
+        def _handle_reshard(self):
+            """POST /reshard {"n_shards": N, "timeout_s": T?}: a live mesh
+            resize, answered with its summary. The gates in /query's
+            order: shutdown first, then the config gate (404 when off).
+            409 while a move runs: the coordinator takes one at a time,
+            so a second operator gets a clean conflict, not a queued
+            surprise."""
+            if self._shutdown_gate():
+                return
+            if server.reshard is None:
+                self._reply(404, b"reshard_enabled is off")
+                return
+            length = int(self.headers.get("Content-Length", "0"))
+            body = self.rfile.read(length)
+            try:
+                req = json.loads(body)
+                n = int(req["n_shards"])
+                timeout = req.get("timeout_s")
+                if timeout is not None:
+                    timeout = float(timeout)
+            except (ValueError, KeyError, TypeError):
+                self._reply(400, b'want JSON body {"n_shards": N}')
+                return
+            from veneur_tpu_torch.reshard import ReshardError
+            if server.reshard.active:
+                self._reply(409, b"a reshard is already in progress")
+                return
+            try:
+                out = server.trigger_reshard(n, timeout=timeout)
+            except ReshardError as e:
+                self._reply(400, str(e).encode())
+                return
+            self._reply(200, json.dumps(out).encode(), "application/json")
 
         def _handle_query(self):
             """Batched read API: answer quantile / cardinality / counter

@@ -61,9 +61,9 @@ step is ordered before its flush, a query's read before the next step,
 and a range read enqueued under the ring's lock before the next ring
 write.
 
-Config keys of features this package has not ported yet raise
+A config key of a feature this package had not ported would raise
 NotImplementedError at construction, naming the ROADMAP item that brings
-them (`NOT_PORTED`).
+it (`NOT_PORTED`); every key the JAX Server serves is served here.
 """
 
 from __future__ import annotations
@@ -100,10 +100,8 @@ MAX_UDP_SSF = 65536
 
 # Config keys whose feature is not ported yet: (key, is it set?, the
 # ROADMAP item that ports it). Each raises NotImplementedError in Server().
-NOT_PORTED = (
-    ("reshard_enabled", lambda c: c.reshard_enabled, "A8b"),
-    ("tag_frequency_enabled", lambda c: c.tag_frequency_enabled, "A9"),
-)
+# Every key the JAX Server serves is served here too.
+NOT_PORTED: tuple = ()
 
 
 def refuse_not_ported(cfg: Config) -> None:
@@ -271,6 +269,24 @@ class Server:
             self.process_span_metrics,
             indicator_timer_name=cfg.indicator_span_timer_name,
             objective_timer_name=cfg.objective_span_timer_name)
+        # tag-frequency heavy hitters (count-min over the span firehose);
+        # each flush reports the interval's top K through the
+        # self-telemetry loop-back. The trace client is made below; the
+        # report reads it at flush time.
+        self.tag_frequency = None
+        if cfg.tag_frequency_enabled:
+            from veneur_tpu_torch.sinks.tagfreq import TagFrequencySink
+            from veneur_tpu_torch.trace.client import report_batch
+            self.tag_frequency = TagFrequencySink(
+                report=lambda samples: report_batch(self.trace_client,
+                                                    samples),
+                tag_keys=cfg.tag_frequency_tag_keys,
+                top_k=cfg.tag_frequency_top_k,
+                depth=cfg.tag_frequency_depth,
+                width=cfg.tag_frequency_width,
+                batch_size=cfg.tag_frequency_batch_size,
+                device=self.device)
+            self.span_sinks.append(self.tag_frequency)
         # bare tags map to empty values (parser.go:694 ParseTagSliceToMap)
         common_tags = {t.split(":", 1)[0]: (t.split(":", 1)[1]
                                             if ":" in t else "")
@@ -430,6 +446,16 @@ class Server:
                 shed_priority_tags=cfg.shed_priority_tags,
                 tenancy=self.tenancy)
 
+        # -- elastic live resharding (reshard/) ----------------------------
+        # Off by default: no coordinator, and the flush path's gate is one
+        # `is not None` check. The collective tier lays out its own mesh,
+        # so the two exclude each other.
+        self._resharding = False
+        self.reshard = None
+        if cfg.reshard_enabled and not cfg.collective_enabled:
+            from veneur_tpu_torch.reshard import ReshardCoordinator
+            self.reshard = ReshardCoordinator(self)
+
         # -- self-adjusting key tables (tables/) ----------------------------
         # Off by default: no manager, no pressure ladder, and the flush
         # path's grow gate is a single `is not None` check.
@@ -549,6 +575,7 @@ class Server:
                 requests=self._c_query_requests,
                 batched=self._c_query_batched,
                 duration=self._t_query,
+                stale_reads=self._c_reshard_stale,
                 history=self.history)
         # -- watch tier (watch/) -------------------------------------------
         # Off by default: no engine thread, the /watch routes answer 404.
@@ -721,20 +748,25 @@ class Server:
             "veneur.query.duration_ns",
             "end-to-end batched query service time: snapshot "
             "round-trip + device launch + response assembly")
-        M.counter("veneur.reshard.moves_total",
-                  "live mesh resizes completed (drain + transfer + cutover)")
-        M.counter("veneur.reshard.rows_moved_total",
-                  "rows whose owner shard changed under a resize and were "
-                  "folded into the new mesh exactly once")
-        M.counter("veneur.reshard.failed_total",
-                  "resizes abandoned: transfer timeout, fold failure after "
-                  "replays, or invalid target")
-        M.counter("veneur.reshard.stale_reads_total",
-                  "queries answered during a transfer from the serving "
-                  "table before all moved rows folded (stale-bounded by "
-                  "one flush interval)")
-        M.timer("veneur.reshard.duration_ns",
-                "one live resize end to end: drain swap through final fold")
+        self._c_reshard_moves = M.counter(
+            "veneur.reshard.moves_total",
+            "live mesh resizes completed (drain + transfer + cutover)")
+        self._c_reshard_rows_moved = M.counter(
+            "veneur.reshard.rows_moved_total",
+            "rows whose owner shard changed under a resize and were "
+            "folded into the new mesh exactly once")
+        self._c_reshard_failed = M.counter(
+            "veneur.reshard.failed_total",
+            "resizes abandoned: transfer timeout, fold failure after "
+            "replays, or invalid target")
+        self._c_reshard_stale = M.counter(
+            "veneur.reshard.stale_reads_total",
+            "queries answered during a transfer from the serving table "
+            "before all moved rows folded (stale-bounded by one flush "
+            "interval)")
+        self._t_reshard = M.timer(
+            "veneur.reshard.duration_ns",
+            "one live resize end to end: drain swap through final fold")
         self._g_watch_active = M.gauge(
             "veneur.watch.active",
             "standing watches currently registered, by watch kind",
@@ -1409,13 +1441,22 @@ class Server:
                         "(state retained)")
             req.finish(False, "deferred: flush worker backlogged")
             return
+        # A flush landing mid-reshard first folds the remaining migration
+        # units (this is the pipeline thread, so the folds race nothing):
+        # the flush then covers the whole drained interval, and the
+        # transition ends at this flush boundary.
+        if self.reshard is not None and self.reshard.active:
+            self.reshard.complete_pending_folds(
+                self.aggregator, float(self.cfg.reshard_transfer_timeout_s))
         now = time.time()
         self.last_flush = now
         # self-adjusting key tables: a due capacity change executes at
         # this swap boundary (tables/growth.py, the one grow site), so the
-        # grow pause is the swap pause
+        # grow pause is the swap pause. While a reshard owns the swap
+        # boundary, planning waits for the next flush (trigger_table_grow
+        # answers 409 instead).
         grow_targets = None
-        if self.tables is not None:
+        if self.tables is not None and not self.reshard_active:
             try:
                 grow_targets = self.tables.plan(self.aggregator)
             except Exception:
@@ -2231,15 +2272,40 @@ class Server:
             log.warning("manual flush did not complete: %s", req.detail)
         return ok
 
+    @property
+    def reshard_active(self) -> bool:
+        return self.reshard is not None and self.reshard.active
+
+    def trigger_reshard(self, new_n_shards: int, wait: bool = True,
+                        timeout: Optional[float] = None):
+        """Resize the mesh live to `new_n_shards` (reshard/). With
+        wait=True, block until the transfer completed and return its
+        summary dict; with wait=False, return the live transfer handle
+        (.done, .summary()). Raises ReshardError when the feature is
+        off, a move is already in progress, the target is invalid or
+        the transfer failed."""
+        if self.reshard is None:
+            from veneur_tpu_torch.reshard import ReshardError
+            raise ReshardError("resharding is disabled "
+                               "(reshard_enabled: false)")
+        return self.reshard.resize(new_n_shards, wait=wait,
+                                   timeout_s=timeout)
+
     def trigger_table_grow(self, targets: dict, wait: bool = True,
                            timeout: Optional[float] = None):
         """Force a per-kind key-table capacity change at the next flush
         boundary (tables/growth.py executes it inside the swap's
-        quiesce). With wait=True returns the flush result like
-        trigger_flush."""
+        quiesce). Raises GrowConflict (.status 409) while a reshard owns
+        the swap boundary: capacity changes wait behind mesh moves, never
+        interleave with them. With wait=True returns the flush result
+        like trigger_flush."""
+        from veneur_tpu_torch.tables.growth import GrowConflict
         if self.tables is None:
             raise RuntimeError("table growth is disabled "
                                "(table_grow_enabled: false)")
+        if self.reshard_active:
+            raise GrowConflict("grow rejected: reshard in progress "
+                               "owns the swap boundary (retry after)")
         self.tables.force(targets)
         return self.trigger_flush(wait=wait, timeout=timeout)
 

@@ -48,6 +48,13 @@ def grown_spec(spec, targets: Dict[str, int]):
     return dataclasses.replace(spec, **changes) if changes else spec
 
 
+class GrowConflict(RuntimeError):
+    """A grow refused because a live reshard owns the swap boundary;
+    .status 409 for admin surfaces."""
+
+    status = 409
+
+
 def grow_swap(server, new_spec) -> Tuple[object, object, object]:
     """Execute a per-kind capacity change at the swap boundary.
 

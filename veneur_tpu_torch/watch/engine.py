@@ -256,7 +256,16 @@ class WatchEngine:
         lands in dispatch_ns; the sampled completion sync runs in
         _materialize on this same engine thread."""
         from veneur_tpu_torch.aggregation.step import flush_live_in_packed
-        flat = self._server.aggregator.query_flat_state(state)
+        from veneur_tpu_torch.parallel.sharded import flat_view
+        agg = self._server.aggregator
+        # by the interval's own layout ([R, S, K, ...] leaves sharded,
+        # [K, ...] on one device): a live reshard may have resized the
+        # mesh since the flush detached it
+        sharded = state.counter_hi.dim() == 3
+        if sharded == hasattr(agg, "layout"):
+            flat = agg.query_flat_state(state)
+        else:
+            flat = flat_view(state) if sharded else state
         inputs = stage_inputs(plan.inputs, self.device)
         t0 = time.perf_counter_ns()
         out = flush_live_in_packed(flat, inputs, spec=self.spec,
@@ -365,6 +374,8 @@ class WatchEngine:
         # delta lookback: the ring window written by the PREVIOUS flush
         # is the baseline of record when the history tier is on
         baselines = self._delta_baselines(watches, hist_seq)
+        # evaluated while a reshard's moved rows may still be folding
+        stale = bool(getattr(self._server, "reshard_active", False))
         events: List[dict] = []
         n_eval: Dict[str, int] = {}
         n_fired: Dict[str, int] = {}
@@ -392,6 +403,8 @@ class WatchEngine:
                       "threshold": w.threshold}
                 if w.value is not None:
                     ev["value"] = w.value
+                if stale:
+                    ev["stale_bounded"] = True
                 events.append(ev)
         for k, n in n_eval.items():
             if self._c_evaluated is not None:
