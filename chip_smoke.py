@@ -162,16 +162,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    OK->ALERT at this flush, the checkpoint it writes passing `python -m
    veneur_tpu_torch.cli.checkpoint verify`, and the 65th local's list
    flushing the same over gRPC and as JSONMetrics. Then a range read
-   through POST /query, 16 more locals' interval imported and left
+   through POST /query, 8 more locals' interval imported and left
    unflushed, and shutdown(), whose tail checkpoint a new card Server
    restores (K1, counters in two steps: the f32 hi parts, then the lo
    residuals) before its listeners start: the watch is still in ALERT,
    the same range read over the restored ring answers the same points
    (K3 launched, its words equal to its plain version's), and its flush
-   equals a card Server's that imported the 16 locals alone in counters,
+   equals a card Server's that imported the 8 locals alone in counters,
    gauges, set words and histogram count/min/max (quantiles: the gap is
    reported, ROADMAP C-5). The checkpoint restored on the CPU flushes the
-   same within 2e-5, and the first 8 locals' lists and the JSONMetric
+   same within 2e-5, and the first 2 locals' lists and the JSONMetric
    batch, replayed on a fresh card Server and on a CPU Server, give the
    same quantiles within rtol/atol 2e-5 (a subset: the CPU's plain
    versions take about a second a list at the default widths). K1 is held
@@ -332,6 +332,44 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    within e/width * N, and the sink's rows reach the metric pipeline
    through the self-telemetry loop-back. Prints spans/s and the update
    ms a batch.
+
+16. (run after phase 15) every sink, the S3 archive and the operator
+   CLIs: one Server that factory.new_from_config builds on the card at
+   the default widths (native ingest, tpu_n_shards 1, UDP and TCP statsd
+   listeners, an SSF listener, /metrics), each sink against a local
+   fake: Datadog metrics and traces, SignalFx and Splunk HEC (sample
+   rate 1) on local HTTP servers, X-Ray on a UDP socket (100%), Falconer
+   and the gRPC span sink on two serve_span_sink servers (in a child
+   process, so that answering their ~20,000 calls takes no share of the
+   Server's interpreter lock; scripts/grpc_span_rate.py compares the
+   two), the debug sink; the Kafka metric and
+   span sinks, LightStep and the S3 archive (a staging dir) injected
+   with recording clients, the archive's first put failing. An interval
+   of a few lines is flushed first: its put fails and leaves a complete
+   staged .tsv.gz of that flush's rows. Then phase 8's 4,233 datagrams
+   through the UDP listener (paced as phase 9 paces them), `python -m
+   veneur_tpu_torch.cli.emit -replay 50000` over TCP, three events and
+   three service checks through emit, and 10,000 of phase 15b's spans
+   through the span pipeline, a wave of 1,000 at a time, then a flush.
+   Gates: K1 launches once a step and K2 at least once a flush;
+   Datadog's and SignalFx's columnar bodies from the card's frame decode
+   to the series and datapoints their object paths post over the debug
+   sink's InterMetrics, the Datadog series hold phase 4's oracles
+   (counters exact once the rate is undone, gauges the last write, p50
+   6% and p99 1%, sets 5%), the replay counters sum to exactly 50,000,
+   and no body passes datadog_flush_max_per_body; Kafka's messages are
+   the debug rows one for one; the S3 object is the debug rows' TSV and
+   its staged copy is gone; every span id arrives exactly once at
+   Datadog, Splunk, X-Ray, Falconer, gRPC, Kafka and LightStep; the
+   events reach /intake and SignalFx's events API, the checks check_run.
+   Then `python -m veneur_tpu_torch.cli.prometheus -once` polls
+   /metrics twice through a recording proxy and sends its statsd back:
+   each counter it sends is the difference of the two expositions, and
+   the next flush carries it; `python -m veneur_tpu_torch.cli.telemetry
+   --json` lists veneur.sink.flush_duration_ns for each metric sink.
+   Prints each sink's flush ms, the span sinks' ingest ms, the
+   sink_fanout and frame_build phase ms, the flush's wall ms, each
+   sink's payload bytes and emit's send rate.
 
 With `--k1-ab TREE ...` the script instead times K1 at the default
 shape in each source tree in turn (phase 3's kernel_ingest, a process
@@ -2704,9 +2742,9 @@ def server_tiers_path(device, frames, clock_hz) -> dict:
 # and sets over 100k uids. The second interval, imported and then left
 # unflushed at shutdown, comes from GLOBAL_TAIL_LOCALS other locals.
 GLOBAL_LOCALS = 64
-GLOBAL_TAIL_LOCALS = 16
+GLOBAL_TAIL_LOCALS = 8
 # the locals replayed on a card Server and a CPU Server, held to each other
-GLOBAL_REPLAY_LOCALS = 8
+GLOBAL_REPLAY_LOCALS = 2
 GLOBAL_SHAPE = dict(counters=10_000, gauges=1_000, timers=2_000,
                     timer_samples=30_000, sets=256, set_members=20_000,
                     uids=100_000)
@@ -5620,6 +5658,756 @@ def tagfreq_path(device) -> dict:
         srv.shutdown()
 
 
+# -- phase 16: every sink, the S3 archive and the operator CLIs ---------------
+
+P16_SPANS = 10_000
+P16_REPLAY, P16_REPLAY_NAMES = 50_000, 10_000
+# a power of two: Datadog's and the archive's counter rates (value over
+# the interval) undo exactly
+P16_INTERVAL_S = 4096
+P16_EVENTS = 3
+P16_SPAN_WAVE = 1_000
+
+
+class _P16Fake:
+    """A local HTTP endpoint that keeps every POST: (path, the headers a
+    sink sets, the body inflated, the bytes on the wire)."""
+
+    def __init__(self):
+        import http.server
+        import threading
+        import zlib
+        got = self.captured = []
+        lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                body = (zlib.decompress(raw) if self.headers.get(
+                    "Content-Encoding") == "deflate" else raw)
+                with lock:
+                    got.append((self.path, self.headers.get("X-SF-Token"),
+                                body, n))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"ok")
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def posts(self, prefix):
+        return [c for c in list(self.captured) if c[0].startswith(prefix)]
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+class _P16Udp:
+    """A UDP socket (the X-Ray daemon's) that keeps every datagram, and
+    the span id of each segment that is in `keep`."""
+
+    def __init__(self, keep):
+        import socket
+        import threading
+        self.keep = keep
+        self.got, self.ids = [], []
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 24)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.addr = "127.0.0.1:%d" % self.sock.getsockname()[1]
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        import socket
+        while not self._stop.is_set():
+            try:
+                gram = self.sock.recv(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            self.got.append(gram)
+            i = int(json.loads(gram.split(b"\n", 1)[1])["id"], 16)
+            if i in self.keep:
+                self.ids.append(i)
+
+    def close(self):
+        self._stop.set()
+        self._t.join(timeout=5)
+        self.sock.close()
+
+
+class _P16Recorder:
+    """The injected Kafka producer, LightStep client and S3 client: each
+    keeps what it is handed; the S3 client fails its first put."""
+
+    def __init__(self):
+        self.produced, self.reports, self.puts = [], [], []
+        self.put_calls = 0
+
+    def produce(self, topic, key, value):
+        self.produced.append((topic, key, value))
+
+    def lightstep_client(self):
+        rec = self
+
+        class Client:
+            def report(self, d):
+                rec.reports.append(d)
+        return Client()
+
+    def put_object(self, Bucket, Key, Body):
+        self.put_calls += 1
+        if self.put_calls == 1:
+            raise RuntimeError("the archive is down")
+        self.puts.append((Bucket, Key, Body))
+
+
+_P16_GRPC_CHILD = r"""
+import json, sys
+from veneur_tpu_torch.sinks.grpsink import serve_span_sink
+lo, hi = int(sys.argv[1]), int(sys.argv[2])
+ids = {"falconer": [], "grpc_span_sink": []}
+
+def keep(got):
+    return lambda span: lo <= span.id <= hi and got.append(span.id)
+servers = [serve_span_sink(keep(ids[k])) for k in ids]
+print(json.dumps([port for _s, port in servers]), flush=True)
+for line in sys.stdin:
+    if line.strip() != "count":
+        break
+    print(json.dumps({k: len(v) for k, v in ids.items()}), flush=True)
+print(json.dumps(ids), flush=True)
+for server, _port in servers:
+    server.stop(grace=1)
+"""
+
+
+class _P16GrpcFakes:
+    """The Falconer and gRPC span sinks' collectors: two serve_span_sink
+    servers in a child process, keeping the span ids in [lo, hi]. The two
+    sinks make one unary call a span; answered here, the calls would take
+    a share of the Server's interpreter lock (scripts/grpc_span_rate.py
+    compares the two)."""
+
+    def __init__(self, lo, hi):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _P16_GRPC_CHILD, str(lo), str(hi)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        _check(line, "16: the gRPC collectors did not start")
+        self.falconer_port, self.grpc_port = json.loads(line)
+
+    def counts(self) -> dict:
+        self.proc.stdin.write("count\n")
+        self.proc.stdin.flush()
+        return json.loads(self.proc.stdout.readline())
+
+    def ids(self) -> dict:
+        self.proc.stdin.write("ids\n")
+        self.proc.stdin.flush()
+        out = json.loads(self.proc.stdout.readline())
+        self.proc.wait(timeout=30)
+        return out
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _p16_metrics_proxy(target_url):
+    """GET / forwards to the Server's GET /metrics and keeps each
+    exposition it hands on: the two that veneur-prometheus polls."""
+    import http.server
+    import threading
+    import urllib.request
+    seen = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            with urllib.request.urlopen(target_url, timeout=30) as r:
+                body = r.read()
+            seen.append(body.decode())
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, seen
+
+
+def _p16_spans():
+    """The first P16_SPANS spans of phase 15b's firehose (config 5)."""
+    payloads, _true = _firehose()
+    return payloads[:P16_SPANS]
+
+
+def _sink_ns(srv) -> dict:
+    """veneur.sink.flush_duration_ns sums by sink, in ns."""
+    t = srv.metrics.get("veneur.sink.flush_duration_ns")
+    return {lv[0]: st.sum for lv, st in t.snapshot(qs=())}
+
+
+def _dd_series(posts):
+    return [s for _p, _t, body, _n in posts
+            for s in json.loads(body)["series"]]
+
+
+def _sfx_points(posts):
+    return [(token, kind, p) for _p, token, body, _n in posts
+            for kind, pts in json.loads(body).items() for p in pts]
+
+
+def _canon(items):
+    return sorted(json.dumps(x, sort_keys=True) for x in items)
+
+
+def _dd_oracle(series, lines, label) -> dict:
+    """Phase 4's oracles on the Datadog series: each counter (its rate
+    times the interval) the exact f64 sum, each gauge the last write,
+    p50 and p99 within 6% and 1% of the midpoint quantiles for keys of
+    >= 24 samples, set estimates within 5% for >= 100 members."""
+    counters, gauges, timers, sets = _oracle(lines)
+    by = {(s["metric"], ",".join(sorted(s["tags"]))): s for s in series}
+    for k, v in counters.items():
+        s = by.get(k)
+        _check(s is not None and s["type"] == "rate"
+               and s["interval"] == P16_INTERVAL_S
+               and s["points"][0][1] * P16_INTERVAL_S == v,
+               f"{label}: counter {k} is {s} against {v}")
+    for k, v in gauges.items():
+        s = by.get(k)
+        _check(s is not None and s["type"] == "gauge"
+               and s["points"][0][1] == v, f"{label}: gauge {k}")
+    worst = {0.5: 0.0, 0.99: 0.0}
+    by_len = {}
+    for k, vals in timers.items():
+        if len(vals) >= 24:
+            by_len.setdefault(len(vals), []).append(k)
+    checked = 0
+    for n, keys in by_len.items():
+        vals = np.asarray([timers[k] for k in keys])
+        for q, suffix, tol in ((0.5, "50percentile", 0.06),
+                               (0.99, "99percentile", 0.01)):
+            exact = midpoint_quantile_rows(vals, q)
+            got = np.asarray([by[(f"{k[0]}.{suffix}", k[1])]["points"][0][1]
+                              for k in keys])
+            rel = np.abs(got - exact) / np.maximum(np.abs(exact), 1e-9)
+            worst[q] = max(worst[q], float(rel.max()))
+            _check((rel < tol).all(), f"{label}: p{int(q * 100)} off by "
+                   f"{rel.max():.4f} on a {n}-sample key")
+        checked += len(keys)
+    _check(checked >= 8, f"{label}: quantile oracle checked {checked} keys")
+    big = [k for k, m in sets.items() if len(m) >= 100]
+    rel = [abs(by[k]["points"][0][1] - len(sets[k])) / len(sets[k])
+           for k in big]
+    _check(len(big) >= 8 and max(rel) < 0.05,
+           f"{label}: HLL off by {max(rel):.4f}")
+    return dict(counters=len(counters), gauges=len(gauges),
+                timers=len(timers), sets=len(sets),
+                quantile_keys_checked=checked, worst_p50_rel=worst[0.5],
+                worst_p99_rel=worst[0.99], worst_hll_rel=max(rel))
+
+
+def _kafka_rows(ims):
+    """The Kafka metric sink's messages for these InterMetrics, by its
+    documented schema (Go's json.Marshal of InterMetric)."""
+    types = {"counter": 0, "gauge": 1, "status": 2}
+    return [dict(Name=m.name, Timestamp=m.timestamp, Value=m.value,
+                 Tags=list(m.tags), Type=types.get(m.type, 1),
+                 Message=m.message, HostName=m.hostname,
+                 Sinks=({s: {} for s in sorted(m.sinks)}
+                        if m.sinks is not None else None))
+            for m in ims if m.is_acceptable_to("kafka")
+            and math.isfinite(m.value)]
+
+
+def _csv_rows(body: bytes):
+    """TSV rows without the partition column (the date of the encode)."""
+    rows = [r.rsplit("\t", 1) for r in body.decode().splitlines()]
+    _check(len({p for _r, p in rows}) <= 1 and all(
+        len(p) == 8 and p.isdigit() for _r, p in rows),
+        "16: the archive's partition column")
+    return [r for r, _p in rows]
+
+
+def _run_cli(args, timeout_s=120.0):
+    """`python -m <args>` from the repository root; -> (rc, out, err,
+    seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args],
+                         capture_output=True, text=True, timeout=timeout_s)
+    return res.returncode, res.stdout, res.stderr, time.perf_counter() - t0
+
+
+def sinks_path(device, lines) -> dict:
+    """Phase 16: one Server that new_from_config builds on `device` at the
+    default widths, flushing into every sink, the S3 archive and the
+    CLIs, each against a local fake in this process."""
+    import functools
+    import gzip
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    from veneur_tpu_torch.cli import emit as emit_cli
+    from veneur_tpu_torch.ops import cuda_digest, cuda_history, cuda_ingest
+    from veneur_tpu_torch.plugins.s3 import S3Plugin
+    from veneur_tpu_torch.protocol.wire import parse_ssf
+    from veneur_tpu_torch.proto import ssf_pb2
+    from veneur_tpu_torch.server.factory import new_from_config
+    from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
+    from veneur_tpu_torch.sinks.kafka import KafkaMetricSink, KafkaSpanSink
+    from veneur_tpu_torch.sinks.lightstep import LightStepSpanSink
+    from veneur_tpu_torch.sinks.localfile import encode_intermetrics_csv
+    from veneur_tpu_torch.sinks.signalfx import SignalFxMetricSink
+
+    t_phase = time.perf_counter()
+    payloads = _p16_spans()
+    ids = {ssf_pb2.SSFSpan.FromString(p).id for p in payloads}
+    _check(len(ids) == P16_SPANS and ids == set(range(min(ids),
+                                                      max(ids) + 1)),
+           "16: the span ids are not one range of distinct ids")
+    dd, ddt, sfx, hec = _P16Fake(), _P16Fake(), _P16Fake(), _P16Fake()
+    dd2, sfx2 = _P16Fake(), _P16Fake()      # the object paths' replays
+    xray = _P16Udp(ids)
+    grpc_fakes = _P16GrpcFakes(min(ids), max(ids))
+    rec = _P16Recorder()
+    stage = tempfile.mkdtemp(prefix="p16-stage-")
+    hostname = "p16-host"
+    cfg = _server_config(
+        interval=f"{P16_INTERVAL_S}s", hostname=hostname, tpu_n_shards=1,
+        profile_capture_enabled=False,
+        statsd_listen_addresses=["udp://127.0.0.1:0", "tcp://127.0.0.1:0"],
+        ssf_listen_addresses=["udp://127.0.0.1:0"],
+        num_span_workers=8, span_channel_capacity=8192,
+        debug_flushed_metrics=True,
+        datadog_api_key="p16", datadog_api_hostname=dd.url,
+        datadog_trace_api_address=ddt.url,
+        signalfx_api_key="p16", signalfx_endpoint_base=sfx.url,
+        splunk_hec_address=hec.url, splunk_hec_token="p16",
+        splunk_span_sample_rate=1,
+        # read_config's defaults for the two (a Config built in code
+        # starts them at 0)
+        datadog_flush_max_per_body=25000, splunk_hec_batch_size=100,
+        xray_address=xray.addr, xray_sample_percentage=100,
+        falconer_address=f"127.0.0.1:{grpc_fakes.falconer_port}",
+        grpsink_address=f"127.0.0.1:{grpc_fakes.grpc_port}")
+    # no Kafka client, lightstep or boto3 on the card's machine: the three
+    # go in injected, with recording clients
+    kafka_m = KafkaMetricSink("p16-broker:9092", metric_topic="metrics",
+                              check_topic="checks", producer=rec.produce)
+    kafka_s = KafkaSpanSink("p16-broker:9092", span_topic="spans",
+                            producer=rec.produce)
+    ls = LightStepSpanSink("p16", num_clients=2,
+                           client_factory=rec.lightstep_client)
+    s3 = S3Plugin("p16-bucket", "us-east-1", hostname,
+                  interval_s=P16_INTERVAL_S, client=rec,
+                  staging_dir=stage)
+    s3_ms, s3_flush = [], s3.flush
+
+    def timed_s3(metrics):
+        # the archive's time a flush: its CSV encode, gzip and put
+        t0 = time.perf_counter()
+        try:
+            return s3_flush(metrics)
+        finally:
+            s3_ms.append((time.perf_counter() - t0) * 1e3)
+    s3.flush = timed_s3
+    srv = new_from_config(cfg, extra_metric_sinks=[kafka_m],
+                          extra_span_sinks=[kafka_s, ls],
+                          extra_plugins=[s3], device=device)
+    out = {}
+    try:
+        names = sorted(s.name for s in srv.metric_sinks)
+        span_names = sorted(s.name for s in srv.span_sinks)
+        _check(names == ["datadog", "debug", "kafka", "signalfx"]
+               and span_names == ["datadog", "falconer", "grpc_span_sink",
+                                  "kafka", "lightstep", "splunk", "xray"],
+               f"16: sinks {names}, span sinks {span_names}")
+        debug = next(s for s in srv.metric_sinks if s.name == "debug")
+        srv.start()
+        agg = srv.aggregator
+        udp_addr = srv.local_addr(0)
+        tcp_addr = srv.local_addr(1)
+        _check(srv._sockets[1].type == socket.SOCK_STREAM,
+               "16: the second statsd socket is not the TCP listener")
+        cuda_ingest.launches = cuda_digest.launches = 0
+        cuda_history.launches = 0
+        steps0 = agg.steps_total
+        flushes = 0
+
+        # interval 0: a few lines; the archive's first put fails
+        base = _lines_seen(agg)
+        warm = [b"p16.warm:1|c", b"p16.flush.mark:1|ms"]
+        _send_paced(srv, [b"\n".join(warm)], "16 warm-up")
+        _wait_seen(srv, base, len(warm), "16 warm-up")
+        debug.flushed.clear()
+        _flush_interval(srv, "16 warm-up")
+        flushes += 1
+        staged = os.listdir(stage)
+        _check(rec.put_calls == 1 and not rec.puts and len(staged) == 1
+               and staged[0].endswith(".tsv.gz"),
+               f"16: after a failed put the staging dir holds {staged}")
+        with open(os.path.join(stage, staged[0]), "rb") as f:
+            kept = gzip.decompress(f.read())
+        _check(_csv_rows(kept) == _csv_rows(encode_intermetrics_csv(
+            debug.flushed, hostname, P16_INTERVAL_S)),
+            "16: the staged object of the failed put is not the flush's")
+
+        # interval 1: phase 8's datagrams, emit -replay over TCP, events,
+        # service checks and, on a thread of their own, the firehose's
+        # spans, each put on the span channel as phase 15b puts them
+        for f in (dd, ddt, sfx, hec):
+            f.captured.clear()
+        rec.produced.clear()
+        debug.flushed.clear()
+        handle = functools.partial(srv.span_pipeline.handle_span,
+                                   ssf_format="packet")
+        feed = {}
+
+        def feed_spans():
+            try:
+                for w in range(0, P16_SPANS, P16_SPAN_WAVE):
+                    for p in payloads[w:w + P16_SPAN_WAVE]:
+                        while not handle(parse_ssf(p)):    # a full channel
+                            time.sleep(0.001)
+                    # a wave at a time: the X-Ray socket never holds more
+                    # than a wave's datagrams
+                    done = min(w + P16_SPAN_WAVE, P16_SPANS)
+                    t1 = time.perf_counter()
+                    while len(xray.ids) < done:
+                        if time.perf_counter() - t1 > 120:
+                            feed["error"] = (
+                                f"span wave {w // P16_SPAN_WAVE}: X-Ray "
+                                f"{len(xray.ids)} of {done} after 120 s")
+                            return
+                        time.sleep(0.01)
+            except BaseException as e:       # reported on the main thread
+                feed["error"] = repr(e)
+        feeder = threading.Thread(target=feed_spans, daemon=True)
+        # phase 8's datagrams alone first: their samples/s is phase 9's
+        datagrams = _datagrams(lines)
+        base = _lines_seen(agg)
+        t1 = time.perf_counter()
+        send_s = _send_paced(srv, datagrams, "16")
+        _wait_seen(srv, base, len(lines), "16")
+        ingest_s = time.perf_counter() - t1
+        # then emit -replay over TCP (a process of its own) while the
+        # spans go in on their thread: the two share no socket
+        t2 = time.perf_counter()
+        replay = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.emit", "-hostport",
+             "tcp://%s:%d" % tcp_addr, "-replay", str(P16_REPLAY),
+             "-replay_names", str(P16_REPLAY_NAMES)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        feeder.start()
+        try:
+            for i in range(P16_EVENTS):
+                rc = emit_cli.main([
+                    "-hostport", "udp://%s:%d" % udp_addr,
+                    "-e_title", f"p16 deploy {i}", "-e_text",
+                    f"build {i} out", "-e_alert_type", "info",
+                    "-e_event_tags", "via:emit", "-sc_name",
+                    f"p16.check.{i}", "-sc_status", str(i % 3),
+                    "-sc_msg", f"check {i}"])
+                _check(rc == 0, f"16: emit event {i} exited {rc}")
+            r_out, r_err = replay.communicate(timeout=300)
+        finally:
+            if replay.poll() is None:
+                replay.kill()
+                replay.wait()
+        _check(replay.returncode == 0, f"16: emit -replay: {r_err[-2000:]}")
+        emit_rate = float(r_out.split("(")[1].split("/s")[0])
+        _wait_seen(srv, base, len(lines) + P16_REPLAY, "16 replay")
+        replay_s = time.perf_counter() - t2
+        _wait_for(lambda: len(srv.event_samples) >= P16_EVENTS,
+                  "16: the events", 30.0)
+        feeder.join(timeout=600)
+        _check(not feeder.is_alive() and "error" not in feed,
+               f"16: the span feed: {feed.get('error', 'still running')}")
+        # the gRPC sinks ingest last: the feed ends when they have it all
+        _wait_for(lambda: min(grpc_fakes.counts().values()) >= P16_SPANS,
+                  "16: the gRPC collectors' spans", 300.0, poll_s=0.05)
+        spans_s = time.perf_counter() - t2
+
+        def ours(seq):
+            return sum(1 for i in seq if i in ids)
+        # Kafka and LightStep ingest before X-Ray and the gRPC sinks
+        # (injected span sinks come first), so this holds at once
+        _wait_for(lambda: ours(ssf_pb2.SSFSpan.FromString(v).id
+                               for t, _k, v in list(rec.produced)
+                               if t == "spans") >= P16_SPANS
+                  and ours(d["span_id"] for d in list(rec.reports))
+                  >= P16_SPANS, "16: Kafka's and LightStep's spans", 60.0,
+                  poll_s=0.05)
+
+        # each span sink's ingest time over the interval, summed over the
+        # span workers
+        span_ingest_ms = {k: v / 1e6 for k, v in
+                          srv.span_pipeline._ingest_ns.items()}
+        sink0 = _sink_ns(srv)
+        flush_ms, phases, _rt = _flush_interval(srv, "16")
+        flushes += 1
+        sink_ms = {k: (v - sink0.get(k, 0.0)) / 1e6
+                   for k, v in _sink_ns(srv).items()}
+        ims = list(debug.flushed)
+        _check(len(ims) > 0, "16: the debug sink got nothing")
+
+        # gate 2: Datadog and SignalFx, the card's frame against the
+        # object path over the debug sink's InterMetrics
+        series = _dd_series(dd.posts("/api/v1/series"))
+        checks = [c for _p, _t, b, _n in dd.posts("/api/v1/check_run")
+                  for c in json.loads(b)]
+        want_dd = DatadogMetricSink(api_key="p16", hostname=hostname,
+                                    api_url=dd2.url,
+                                    interval_s=P16_INTERVAL_S)
+        want_dd.flush(ims)
+        _check(_canon(series) == _canon(_dd_series(dd2.posts(
+            "/api/v1/series"))), "16: Datadog's columnar series differ "
+            "from its object path's")
+        _check(_canon(checks) == _canon(
+            c for _p, _t, b, _n in dd2.posts("/api/v1/check_run")
+            for c in json.loads(b)), "16: Datadog's service checks differ")
+        max_body = max(len(json.loads(b)["series"]) for _p, _t, b, _n in
+                       dd.posts("/api/v1/series"))
+        _check(max_body <= cfg.datadog_flush_max_per_body,
+               f"16: a Datadog body of {max_body} series")
+        oracle = _dd_oracle(series, lines, "16 datadog")
+        replay_sum = sum(s["points"][0][1] * P16_INTERVAL_S for s in series
+                         if s["metric"].startswith("replay.counter."))
+        _check(replay_sum == P16_REPLAY,
+               f"16: replay counters sum to {replay_sum}")
+        points = _sfx_points(sfx.posts("/v2/datapoint"))
+        want_sfx = SignalFxMetricSink(api_key="p16", endpoint=sfx2.url,
+                                      hostname=hostname)
+        want_sfx.flush(ims)
+        _check(_canon(points) == _canon(_sfx_points(sfx2.posts(
+            "/v2/datapoint"))), "16: SignalFx's columnar datapoints "
+            "differ from its object path's")
+        _check(len(points) == len(ims), f"16: {len(points)} SignalFx "
+               f"points for {len(ims)} rows")
+
+        # gate 3: Kafka one for one, the archive's object
+        msgs = [(t, k, json.loads(v)) for t, k, v in rec.produced
+                if t in ("metrics", "checks")]
+        want_k = _kafka_rows(ims)
+        _check([m for _t, _k, m in msgs] == want_k
+               and all(k == m["Name"].encode() and t == (
+                   "checks" if m["Type"] == 2 else "metrics")
+                   for t, k, m in msgs),
+               f"16: {len(msgs)} Kafka messages for {len(want_k)} rows")
+        _check(rec.put_calls == 2 and len(rec.puts) == 1,
+               f"16: {rec.put_calls} puts")
+        bucket, key, body = rec.puts[0]
+        _check(bucket == "p16-bucket" and key.startswith(hostname + "/")
+               and key.endswith(".tsv.gz"), f"16: S3 key {key}")
+        _check(_csv_rows(gzip.decompress(body)) == _csv_rows(
+            encode_intermetrics_csv(ims, hostname, P16_INTERVAL_S)),
+            "16: the S3 object is not the flush's rows")
+        _check(os.listdir(stage) == staged, "16: the acked put's staged "
+               f"copy was kept: {os.listdir(stage)}")
+
+        # gate 5: events and service checks
+        intake = [e for _p, _t, b, _n in dd.posts("/intake")
+                  for e in json.loads(b)["events"]]
+        sfx_events = [e for _p, _t, b, _n in sfx.posts("/v2/event")
+                      for e in json.loads(b)]
+        titles = {f"p16 deploy {i}" for i in range(P16_EVENTS)}
+        _check({e["title"] for e in intake} == titles
+               and {e["eventType"] for e in sfx_events} == titles,
+               f"16: events at /intake {len(intake)}, SignalFx "
+               f"{len(sfx_events)}")
+        _check({c["check"] for c in checks} >= {
+            f"p16.check.{i}" for i in range(P16_EVENTS)},
+            f"16: service checks {sorted(c['check'] for c in checks)}")
+
+        # gate 4: every span id exactly once at every span sink
+        _wait_for(lambda: ours(int(json.loads(b)["event"]["id"], 16)
+                               for _p, _t, body, _n in hec.posts("/")
+                               for b in body.splitlines()) >= P16_SPANS
+                  and ddt.posts("/v0.3/traces"), "16: Splunk and Datadog "
+                  "traces", 60.0)
+        got_ids = {
+            "datadog": [s["span_id"] for _p, _t, b, _n in
+                        ddt.posts("/v0.3/traces")
+                        for trace in json.loads(b) for s in trace],
+            "splunk": [int(json.loads(b)["event"]["id"], 16)
+                       for _p, _t, body, _n in hec.posts("/")
+                       for b in body.splitlines()],
+            "xray": list(xray.ids),
+            **grpc_fakes.ids(),
+            "kafka": [ssf_pb2.SSFSpan.FromString(v).id
+                      for t, _k, v in rec.produced if t == "spans"],
+            "lightstep": [d["span_id"] for d in rec.reports]}
+        splunk = next(s for s in srv.span_sinks if s.name == "splunk")
+        _check(splunk.dropped == 0, f"16: Splunk dropped {splunk.dropped}")
+        for name, seen in got_ids.items():
+            mine = [i for i in seen if i in ids]
+            _check(len(mine) == P16_SPANS and set(mine) == ids,
+                   f"16: span sink {name} got {len(mine)} of our spans, "
+                   f"{len(set(mine))} distinct")
+        nbytes = {
+            "datadog": sum(n for _p, _t, _b, n in dd.captured),
+            "signalfx": sum(n for _p, _t, _b, n in sfx.captured),
+            "kafka": sum(len(v) for t, _k, v in rec.produced
+                         if t != "spans"),
+            "s3": len(body),
+            "datadog_spans": sum(n for _p, _t, _b, n in ddt.captured),
+            "splunk": sum(n for _p, _t, _b, n in hec.captured),
+            "xray": sum(len(g) for g in xray.got),
+            "kafka_spans": sum(len(v) for t, _k, v in rec.produced
+                               if t == "spans")}
+
+        # the CLIs: veneur-prometheus polls /metrics twice (through a
+        # proxy that keeps both expositions) and sends its statsd back
+        proxy, expos = _p16_metrics_proxy(
+            f"http://127.0.0.1:{srv.http_port}/metrics")
+        debug.flushed.clear()
+        base_lines = _lines_seen(agg)
+        base = srv.packets_received
+        try:
+            rc, _o, p_err, prom_s = _run_cli([
+                "veneur_tpu_torch.cli.prometheus", "-p",
+                f"http://127.0.0.1:{proxy.server_address[1]}/metrics",
+                "-h2", "%s:%d" % udp_addr, "-i", "200ms", "-once"])
+        finally:
+            proxy.shutdown()
+            proxy.server_close()
+        _check(rc == 0 and len(expos) == 2,
+               f"16: veneur-prometheus exited {rc} after {len(expos)} "
+               f"polls: {p_err[-2000:]}")
+        from veneur_tpu_torch.cli.prometheus import (Translator,
+                                                     parse_exposition)
+        # what the CLI sent, by its own translator over the expositions
+        # it read; the deltas, from the two expositions apart
+        tr = Translator()
+        first = tr.translate(*parse_exposition(expos[0]))
+        sent = tr.translate(*parse_exposition(expos[1]))
+        t_prev = {(n, tuple(sorted(lb.items()))): v for n, lb, v in
+                  parse_exposition(expos[0])[1]}
+        deltas = {}
+        types1, samples1 = parse_exposition(expos[1])
+        for n, lb, v in samples1:
+            base_name = n
+            for suffix in ("_bucket", "_sum", "_count"):
+                if n.endswith(suffix) and n[:-len(suffix)] in types1:
+                    base_name = n[:-len(suffix)]
+            kind = types1.get(n) or types1.get(base_name, "untyped")
+            prev = t_prev.get((n, tuple(sorted(lb.items()))))
+            if (kind in ("counter", "histogram") or kind == "summary"
+                    and n.endswith(("_sum", "_count"))) \
+                    and prev is not None and v > prev:
+                deltas[(n, ",".join(f"{k}:{x}" for k, x in
+                                    sorted(lb.items())))] = v - prev
+        counts = {}
+        for p in sent:
+            name, rest = p.decode().split(":", 1)
+            value, mtype, *tail = rest.split("|")
+            if mtype == "c":
+                counts[(name, tail[0][1:] if tail else "")] = value
+        _check(counts and counts.keys() == deltas.keys() and all(
+            float(v) == float(f"{deltas[k]:g}") for k, v in counts.items()),
+            f"16: veneur-prometheus sent {len(counts)} counters for "
+            f"{len(deltas)} deltas between its two polls")
+        n_sent = len(first) + len(sent)
+        _wait_for(lambda: srv.packets_received - base >= n_sent,
+                  "16: veneur-prometheus's packets", 30.0)
+        mark = [b"p16.flush.mark:2|ms"]
+        _send_paced(srv, mark, "16 cli")
+        _wait_seen(srv, base_lines, n_sent + len(mark), "16 cli")
+        _flush_interval(srv, "16 cli")
+        flushes += 1
+        got = {(m.name, ",".join(m.tags)): m.value for m in debug.flushed
+               if m.type == "counter"}
+        wrong = {k: (v, got.get(k)) for k, v in counts.items()
+                 if got.get(k) != float(np.float32(float(v)))}
+        _check(not wrong, f"16: the next flush's counters differ from the "
+               f"deltas sent: {list(wrong.items())[:5]}")
+        # the span worker's per-sink flush timer (ns) of interval 1
+        span_flush_ms = {
+            m.tags[0].split(":", 1)[1]: m.value / 1e6 for m in debug.flushed
+            if m.name == "veneur.worker.span.flush_duration_ns.max"
+            and m.tags and m.tags[0].startswith("sink:")}
+
+        # the telemetry dump lists each sink's flush duration
+        rc, t_out, t_err, tele_s = _run_cli([
+            "veneur_tpu_torch.cli.telemetry", "--json",
+            f"http://127.0.0.1:{srv.http_port}/metrics"])
+        _check(rc == 0, f"16: telemetry exited {rc}: {t_err[-2000:]}")
+        dump = json.loads(t_out)
+        for name in names:
+            _check(any(r["series"].startswith(
+                "veneur_sink_flush_duration_ns")
+                and f'sink="{name}"' in r["series"] for r in dump),
+                f"16: the telemetry dump has no flush duration for {name}")
+
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches,
+                    "merge_windows": cuda_history.launches}
+        steps = agg.steps_total - steps0
+        _check(launches["fused_ingest"] == steps > 0,
+               f"16: {launches['fused_ingest']} K1 launches for {steps} "
+               "steps")
+        _check(launches["digest_quantiles"] >= flushes,
+               f"16: {launches['digest_quantiles']} K2 launches for "
+               f"{flushes} flushes")
+        received, dropped = srv.packets_received, srv.packets_dropped
+        _check(dropped == 0, f"16: {dropped} datagrams dropped")
+        out.update(
+            lines=len(lines), replay_lines=P16_REPLAY,
+            datagrams=len(datagrams), datagrams_received=received,
+            steps=steps, flushes=flushes, launches=launches,
+            send_s=send_s, ingest_s=ingest_s,
+            samples_per_s=len(lines) / ingest_s, replay_s=replay_s,
+            emit_replay_per_s=emit_rate,
+            spans=P16_SPANS, spans_s=spans_s,
+            spans_per_s=P16_SPANS / spans_s, flush_ms=flush_ms,
+            sink_fanout_ms=phases.get("sink_fanout"),
+            frame_build_ms=phases.get("frame_build"),
+            device_update_ms=phases.get("device_update"),
+            s3_flush_ms=s3_ms[1], sink_flush_ms=sink_ms,
+            span_sink_flush_ms=span_flush_ms,
+            span_sink_ingest_ms=span_ingest_ms, payload_bytes=nbytes,
+            rows=len(ims), datadog_series=len(series),
+            datadog_bodies=len(dd.posts("/api/v1/series")),
+            signalfx_points=len(points), kafka_messages=len(msgs),
+            events=len(intake), service_checks=len(checks),
+            prometheus_packets=n_sent, prometheus_deltas=len(deltas),
+            prometheus_s=prom_s, telemetry_s=tele_s,
+            telemetry_series=len(dump), **oracle)
+    finally:
+        srv.shutdown()
+        for f in (dd, ddt, sfx, hec, dd2, sfx2):
+            f.close()
+        xray.close()
+        grpc_fakes.close()
+        shutil.rmtree(stage, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def k1_ab(trees) -> None:
     """K1 at the default shape (phase 3's kernel_ingest: a warm default
     table, the main path's Zipf batch and the hot batch, each held
@@ -5981,6 +6769,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("15")
 
+    # phase 16: every sink, the S3 archive and the operator CLIs
+    snk = sinks_path(device, lines)
+    print("sinks path:", json.dumps(snk))
+    p16 = snk["launches"]
+    print(f"sinks path on {card}: flush {snk['flush_ms']:.1f} ms "
+          f"(sink_fanout {snk['sink_fanout_ms']:.1f}, frame_build "
+          f"{snk['frame_build_ms']:.1f}, S3 {snk['s3_flush_ms']:.1f}); "
+          "sink flush ms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(snk["sink_flush_ms"].items()))
+          + f"; {snk['rows']} rows, {snk['datadog_series']} Datadog series "
+          f"in {snk['datadog_bodies']} bodies; payload bytes "
+          + ", ".join(f"{k} {v}" for k, v in
+                      sorted(snk["payload_bytes"].items()))
+          + f"; emit -replay {snk['emit_replay_per_s']:.0f} lines/s; "
+          f"{snk['spans_per_s']:.0f} spans/s into 7 span sinks; K1 "
+          f"{p16['fused_ingest']} launches for {snk['steps']} steps, K2 "
+          f"{p16['digest_quantiles']} for {snk['flushes']} flushes; phase "
+          f"{snk['phase_s']:.1f} s")
+    lap("16")
+
     # every run whose quantiles are held to the exact oracle: its worst
     # p50 and p99 errors beside their limits
     gated = {"4": main, "5": big, "7": wide, "9": srv,
@@ -5989,7 +6797,8 @@ def main() -> int:
              **{f"14a {k}": shard[k] for k in ("split", "preshard",
                                                "rings")},
              **{f"15a {k}": rs[k] for k in ("fixed_static",
-                                            "fixed_elastic")}}
+                                            "fixed_elastic")},
+             "16 datadog": snk}
     worst = {k: [round(r["worst_p50_rel"], 6), round(r["worst_p99_rel"], 6)]
              for k, r in gated.items()}
     worst["14b p99 only"] = [None, round(coll["timer_error"]["p99"]["max"],
@@ -6013,7 +6822,8 @@ def main() -> int:
                  "12": fl["fused_ingest"],
                  "13": p13["fused_ingest"],
                  "14": p14["fused_ingest"],
-                 "15": p15["fused_ingest"]},
+                 "15": p15["fused_ingest"],
+                 "16": p16["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None,
@@ -6043,7 +6853,8 @@ def main() -> int:
                  "12": fl["digest_quantiles"],
                  "13": p13["digest_quantiles"],
                  "14": p14["digest_quantiles"],
-                 "15": p15["digest_quantiles"]},
+                 "15": p15["digest_quantiles"],
+                 "16": p16["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],

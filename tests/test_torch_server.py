@@ -65,7 +65,6 @@ from veneur_tpu_torch.observability import registry as tregistry
 from veneur_tpu_torch.ops import tdigest as ttd
 from veneur_tpu_torch.proto import ssf_pb2 as tssf
 from veneur_tpu_torch.samplers import parser as tparser
-from veneur_tpu_torch.server import factory as tfactory
 from veneur_tpu_torch.server import httpapi as thttp
 from veneur_tpu_torch.server import server as tserver_mod
 from veneur_tpu_torch.sinks.debug import DebugMetricSink as TDebugMetricSink
@@ -718,30 +717,6 @@ def test_forward_keys_build_a_server_that_forwards_spills_or_dedups(key):
             assert srv.forward_spill.max_bytes == 32 << 20
     finally:
         srv.shutdown()
-
-
-SINK_KEYS = {
-    "datadog_api_key": dict(datadog_api_key="k",
-                            datadog_api_hostname="https://x"),
-    "signalfx_api_key": dict(signalfx_api_key="k"),
-    "splunk_hec_address": dict(splunk_hec_address="https://x",
-                               splunk_hec_token="t"),
-    "datadog_trace_api_address": dict(datadog_trace_api_address="x"),
-    "xray_address": dict(xray_address="x:1", xray_sample_percentage=5.0),
-    "falconer_address": dict(falconer_address="x:1"),
-    "grpsink_address": dict(grpsink_address="x:1"),
-    "kafka_broker": dict(kafka_broker="x:1", kafka_metric_topic="m"),
-    "lightstep_access_token": dict(lightstep_access_token="t"),
-    "aws_s3_bucket": dict(aws_s3_bucket="b", aws_region="r"),
-}
-
-
-@pytest.mark.parametrize("key", sorted(SINK_KEYS))
-def test_sinks_outside_the_slice_raise(key):
-    assert {k for k, _f, _w in tfactory.SINKS_NOT_PORTED} == set(SINK_KEYS)
-    cfg = tconfig.Config(**dict(SMALL, **SINK_KEYS[key]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tfactory.new_from_config(cfg, device="cpu")
 
 
 def test_pallas_ingest_key_changes_nothing_on_the_cpu():
