@@ -371,6 +371,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    sink_fanout and frame_build phase ms, the flush's wall ms, each
    sink's payload bytes and emit's send rate.
 
+17. (run after phase 16) the port's lint and its sanitized engine:
+   `python -m veneur_tpu_torch.analysis --all --json` on this tree in a
+   child (ok, 12 passes, no finding), and beside it a child under
+   libasan and libubsan (LD_PRELOAD, ASAN_OPTIONS=detect_leaks=0,
+   UBSAN_OPTIONS=halt_on_error=1:print_stacktrace=1) that makes no CUDA
+   call: VENEUR_NATIVE_SANITIZE=1's engine (built beside phase 2's
+   kernels) takes phase 8's datagrams by feed, the intake corpora
+   (tests/test_native.py, tests/test_intake_fuzz.py) by feed, and phase
+   8's datagrams over loopback UDP through readers_start and pump (on
+   gVisor, the engine's recv fallback), writing every packed buffer it
+   emits. Gates: no sanitizer report; each buffer equals the plain
+   engine's on the same input word for word and is what K1 reads on the
+   card; the engine's counts equal; the feed and udp flushes equal phase
+   8's feed InterMetrics; K1 launches once a step, K2 in each flush.
+   Prints the lint's runtime, the child's wall, the words compared and
+   the phase's seconds.
+
 With `--k1-ab TREE ...` the script instead times K1 at the default
 shape in each source tree in turn (phase 3's kernel_ingest, a process
 each), to compare two commits on one card in one call.
@@ -483,31 +500,39 @@ def device_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> float:
+def build_kernels(sanitized: bool = False) -> float:
     """The CUDA kernels (nvcc, one process a source) and, beside them on
-    another thread, the native ingest engine (g++)."""
+    other threads, the native ingest engine (g++) and, with `sanitized`,
+    its ASan+UBSan build for phase 17 (built, not loaded: only phase 17's
+    child loads it)."""
     import threading
     from veneur_tpu_torch import native
     from veneur_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    engine = {}
+    engines = {False: {}, True: {}}
 
-    def build_engine():
+    def build_engine(san):
         try:
-            engine["path"] = native.build()
+            engines[san]["path"] = native.build(sanitize=san)
         except BaseException as e:      # re-raised below, on this thread
-            engine["error"] = e
-        engine["s"] = time.perf_counter() - t0
-    th = threading.Thread(target=build_engine)
-    th.start()
+            engines[san]["error"] = e
+        engines[san]["s"] = time.perf_counter() - t0
+    threads = [threading.Thread(target=build_engine, args=(san,))
+               for san in ((False, True) if sanitized else (False,))]
+    for th in threads:
+        th.start()
     _path, log = _build.build()
     _build.load()
-    th.join()
-    if "error" in engine:
-        raise engine["error"]
+    for th in threads:
+        th.join()
+    for engine in engines.values():
+        if "error" in engine:
+            raise engine["error"]
     native.load()
-    print(f"build: native engine {engine['path'].name} in "
-          f"{engine['s']:.1f} s")
+    for san, engine in engines.items():
+        if "path" in engine:
+            print(f"build: native engine{' (sanitized)' if san else ''} "
+                  f"{engine['path'].name} in {engine['s']:.1f} s")
     dt = time.perf_counter() - t0
     for line in log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry",
@@ -1381,7 +1406,7 @@ def _same_intermetrics(got, want, label, by_key: bool = False) -> float:
     return worst
 
 
-def native_path(device, lines, python_ims) -> dict:
+def native_path(device, lines, python_ims, keep=None) -> dict:
     """Phase 4's lines through NativeAggregator on the card, the default
     config's ingest path, by three routes: `feed` (datagrams handed to
     the engine), `udp` (a loopback socket, the C++ reader and pump(20))
@@ -1485,6 +1510,8 @@ def native_path(device, lines, python_ims) -> dict:
         ims_by["feed"], python_ims, "native feed vs the Python path")
     out["udp"]["worst_percentile_gap_vs_feed"] = _same_intermetrics(
         ims_by["udp"], ims_by["feed"], "native udp vs feed")
+    if keep is not None:
+        keep["feed_ims"] = ims_by["feed"]     # phase 17's reference
     return out, ims_by["udp"]
 
 
@@ -6408,6 +6435,362 @@ def sinks_path(device, lines) -> dict:
     return out
 
 
+# -- phase 17: the port's lint and its sanitized engine ---------------------------
+
+P17_PASSES = 12
+# the intake corpora, by test file (read out of the files' source, which
+# import the JAX package and so are never imported here)
+P17_CORPORA = {
+    "tests/test_native.py": ("GOOD_PACKETS", "BAD_PACKETS"),
+    "tests/test_intake_fuzz.py": ("MALFORMED_METRIC_CORPUS",
+                                  "MALFORMED_EVENT_CORPUS",
+                                  "MALFORMED_CHECK_CORPUS"),
+}
+P17_RUNS = ("feed", "corpus", "udp")
+
+
+def _intake_corpora() -> list:
+    """Every packet of the intake corpora as bytes, each list evaluated
+    from its assignment in the test file with no builtins but range."""
+    import ast
+    out = []
+    for rel, names in P17_CORPORA.items():
+        with open(rel) as f:
+            tree = ast.parse(f.read(), filename=rel)
+        found = set()
+        for node in tree.body:
+            if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                    and getattr(node.targets[0], "id", None) in names:
+                found.add(node.targets[0].id)
+                out += eval(compile(ast.Expression(node.value), rel, "eval"),
+                            {"__builtins__": {"range": range}})
+        _check(found == set(names), f"phase 17: {rel} lacks "
+               f"{sorted(set(names) - found)}")
+    return [p if isinstance(p, bytes) else p.encode("utf-8",
+                                                    "surrogateescape")
+            for p in out]
+
+
+def _write_grams(path, grams) -> None:
+    lens = np.asarray([len(g) for g in grams], np.int64)
+    with open(path, "wb") as f:
+        f.write(len(grams).to_bytes(8, "little"))
+        f.write(lens.tobytes())
+        f.write(b"".join(grams))
+
+
+def _read_grams(path) -> list:
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        lens = np.frombuffer(f.read(8 * n), np.int64)
+        blob = f.read()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [blob[offs[i]:offs[i + 1]] for i in range(n)]
+
+
+class _ChildEmits:
+    """The sanitized child's side of NativeAggregator's packed emits: two
+    buffers in turn, each keeping its previous emit's counts, and the
+    control word set as `_begin_step` sets it; every emitted buffer is
+    appended to `out`."""
+
+    def __init__(self, init, offs, compact_every: int, out):
+        self.bufs = [init.copy(), init.copy()]
+        self.prev = [np.zeros(4, np.uint32) for _ in range(2)]
+        self.idx, self.steps = 0, 0
+        self.offs, self.compact_every, self.out = offs, compact_every, out
+
+    def emit(self, eng) -> None:
+        buf = self.bufs[self.idx]
+        if sum(eng.emit_packed(buf, self.offs, self.prev[self.idx])) == 0:
+            return
+        self.idx = 1 - self.idx
+        self.steps += 1
+        buf[0] = 1 if self.steps % self.compact_every == 0 else 0
+        self.out.write(buf.tobytes())
+
+
+def _child_udp(eng, em, grams, n_lines: int) -> dict:
+    """Phase 8's udp route on the bare engine: one reader on a loopback
+    socket, a sender thread that waits for the reader every 64
+    datagrams, and NativeAggregator.pump's loop on this thread."""
+    import socket
+    import threading
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    rx.bind(("127.0.0.1", 0))
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    eng.readers_start([rx.fileno()])
+    failed = []
+
+    def send():
+        try:
+            for i in range(0, len(grams), 64):
+                for d in grams[i:i + 64]:
+                    tx.sendto(d, rx.getsockname())
+                sent, t0 = min(i + 64, len(grams)), time.perf_counter()
+                while eng.reader_counters()["datagrams"] < sent:
+                    if time.perf_counter() - t0 > 30:
+                        raise TimeoutError(f"datagram {sent} not taken")
+                    time.sleep(0.0002)
+        except BaseException as e:      # reported below
+            failed.append(e)
+    th = threading.Thread(target=send)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        while True:
+            st = eng.stats()
+            if st["processed"] + st["parse_errors"] + st["dropped"] \
+                    >= n_lines:
+                break
+            _check(not failed and time.perf_counter() - t0 < 120,
+                   f"phase 17 child udp: {st} of {n_lines} lines, {failed}")
+            full, _ = eng.pump(20)
+            for _ in range(8):
+                if not full:
+                    break
+                em.emit(eng)
+                full, _ = eng.pump(0)
+            if full:
+                em.emit(eng)
+            eng.drain_specials()
+        counters = eng.reader_counters()
+    finally:
+        th.join()
+        eng.readers_stop()
+        rx.close()
+        tx.close()
+    _check(not failed, f"phase 17 child udp: sender failed: {failed}")
+    return counters
+
+
+def sanitized_child(work: str) -> int:
+    """Phase 17's child, under the sanitizer runtimes and with no CUDA
+    call (it imports numpy and the engine's binding only): phase 8's
+    datagrams by feed, the intake corpora by feed, and phase 8's
+    datagrams again over loopback UDP through the readers and pump, each
+    into a fresh engine, every packed buffer written to WORK/<run>.bin
+    and the engine's counts to WORK/<run>.json."""
+    import os
+    import types
+    from veneur_tpu_torch import native
+    t0 = time.perf_counter()
+    _check(native.sanitized(), "phase 17 child: VENEUR_NATIVE_SANITIZE unset")
+    lib = os.path.basename(native.load()._name)
+    _check(lib == native.library(True)[1].name,
+           f"phase 17 child: loaded {lib}, not the sanitized build")
+    with open(os.path.join(work, "meta.json")) as f:
+        meta = json.load(f)
+    init = np.load(os.path.join(work, "init.npy"))
+    offs = np.asarray(meta["offs"], np.int32)
+    spec = types.SimpleNamespace(**meta["spec"])
+    bspec = types.SimpleNamespace(**meta["bspec"])
+    grams = {"feed": _read_grams(os.path.join(work, "feed.grams")),
+             "corpus": _read_grams(os.path.join(work, "corpus.grams"))}
+    grams["udp"] = grams["feed"]
+    for run in P17_RUNS:
+        eng = native.NativeIngest(spec, bspec)
+        with open(os.path.join(work, f"{run}.bin"), "wb") as out:
+            em = _ChildEmits(init, offs, meta["compact_every"], out)
+            counters = None
+            if run == "udp":
+                counters = _child_udp(eng, em, grams[run], meta["lines"])
+            else:
+                for d in grams[run]:
+                    full, off = eng.feed(d)
+                    while full:
+                        em.emit(eng)
+                        full, off = eng.feed(d, off)
+                    eng.drain_specials()
+            em.emit(eng)                # the swap's emit
+        with open(os.path.join(work, f"{run}.json"), "w") as f:
+            json.dump({"emits": em.steps, "stats": eng.stats(),
+                       "readers": counters}, f)
+        del eng
+    print(json.dumps({"child_s": time.perf_counter() - t0, "library": lib}))
+    return 0
+
+
+def _san_env() -> dict:
+    """The child's environment: the sanitizer runtimes g++ ships,
+    preloaded, and the reference's sanitizer options."""
+    import os
+    preload = []
+    for name in ("libasan.so", "libubsan.so"):
+        path = subprocess.run(["g++", f"-print-file-name={name}"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+        _check(os.path.isabs(path) and os.path.isfile(path),
+               f"phase 17: g++ ships no {name} ({path!r})")
+        preload.append(path)
+    return {**os.environ, "VENEUR_NATIVE_SANITIZE": "1",
+            "LD_PRELOAD": ":".join(preload),
+            "ASAN_OPTIONS": "detect_leaks=0",
+            "UBSAN_OPTIONS": "halt_on_error=1:print_stacktrace=1"}
+
+
+def lint_and_sanitized_path(device, lines, feed_ims) -> dict:
+    """Phase 17: `python -m veneur_tpu_torch.analysis --all --json` on
+    this tree in one child, and the sanitized engine in another (see
+    sanitized_child), both at once; then every packed buffer the
+    sanitized engine emitted is held word for word against the plain
+    engine's on the same input, put in place of it and run through K1
+    on the card. The feed and udp runs' flushes must equal phase 8's
+    feed InterMetrics; each run's engine counts must equal the plain
+    engine's."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from veneur_tpu_torch.aggregation.host import BatchSpec
+    from veneur_tpu_torch.ops import cuda_digest, cuda_ingest
+    from veneur_tpu_torch.server.flusher import generate_intermetrics
+    from veneur_tpu_torch.server.native_aggregator import NativeAggregator
+
+    t_phase = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "veneur_tpu_torch.analysis", "--all",
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    work = tempfile.mkdtemp(prefix="p17_")
+    child = None
+    try:
+        spec, bspec = _default_spec(), BatchSpec()
+        probe = NativeAggregator(spec, bspec, device=device)
+        grams = {"feed": _datagrams(lines), "corpus": _intake_corpora()}
+        grams["udp"] = grams["feed"]
+        with open(os.path.join(work, "meta.json"), "w") as f:
+            json.dump({"spec": {k: getattr(spec, k) for k in (
+                "counter_capacity", "gauge_capacity", "set_capacity",
+                "histo_capacity", "hll_precision")},
+                "bspec": {k: getattr(bspec, k) for k in (
+                    "counter", "gauge", "set", "histo")},
+                "offs": probe._pk_offs.tolist(),
+                "compact_every": probe.compact_every,
+                "lines": len(lines)}, f)
+        np.save(os.path.join(work, "init.npy"), probe._pk_bufs[0].array)
+        del probe
+        _write_grams(os.path.join(work, "feed.grams"), grams["feed"])
+        _write_grams(os.path.join(work, "corpus.grams"),
+                     [g + b"\n" for g in grams["corpus"]])
+        grams["corpus"] = [g + b"\n" for g in grams["corpus"]]
+        t_child = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sanitized-child",
+             work], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=_san_env())
+        linted = {}
+
+        def wait_lint():
+            linted["out"] = lint.communicate(timeout=300)
+            linted["wall_s"] = time.perf_counter() - t_phase
+        waiter = threading.Thread(target=wait_lint)
+        waiter.start()
+        c_out, c_err = child.communicate(timeout=300)
+        child_wall = time.perf_counter() - t_child
+        _check(child.returncode == 0,
+               f"phase 17: sanitized child exited {child.returncode}:\n"
+               f"{c_out[-3000:]}{c_err[-6000:]}")
+        _check("AddressSanitizer" not in c_err
+               and "runtime error:" not in c_err,
+               f"phase 17: sanitizer report:\n{c_err[-6000:]}")
+        child_rep = json.loads(c_out.strip().splitlines()[-1])
+        cuda_ingest.launches = cuda_digest.launches = 0
+        steps, runs = 0, {}
+        for run in P17_RUNS:
+            with open(os.path.join(work, f"{run}.json")) as f:
+                crun = json.load(f)
+            words = np.fromfile(os.path.join(work, f"{run}.bin"), np.int32)
+            san = words.reshape(crun["emits"], -1) if crun["emits"] \
+                else words.reshape(0, 1)
+            held = {"n": 0, "bad": []}
+
+            class Held(NativeAggregator):
+                # the plain engine's buffer against the sanitized one's,
+                # then the sanitized words are the ones K1 reads
+                def _begin_step(self, buf):
+                    do_compact = super()._begin_step(buf)
+                    i = held["n"]
+                    held["n"] += 1
+                    if i >= len(san) or not np.array_equal(buf.array,
+                                                           san[i]):
+                        held["bad"].append(i)
+                    else:
+                        buf.array[...] = san[i]
+                    return do_compact
+            agg = Held(spec, bspec, device=device)
+            for d in grams[run]:
+                agg.feed(d)
+            state, table = agg.swap()
+            res, table = agg.compute_flush(state, table, PERCENTILES)
+            torch.cuda.synchronize()
+            ims = generate_intermetrics(
+                res, table, percentiles=PERCENTILES, aggregates=AGGREGATES,
+                is_local=False, timestamp=int(time.time()))
+            label = f"phase 17 {run}"
+            _check(held["n"] == crun["emits"] and not held["bad"],
+                   f"{label}: {held['n']} plain emits against "
+                   f"{crun['emits']} sanitized, unequal at {held['bad']}")
+            plain = agg.eng.stats()
+            _check(plain == crun["stats"],
+                   f"{label}: engine counts {crun['stats']} sanitized, "
+                   f"{plain} plain")
+            if run == "udp":
+                rd = crun["readers"]
+                _check(rd["datagrams"] == len(grams[run])
+                       and rd["ring_dropped"] == 0 and rd["toolong"] == 0,
+                       f"{label}: reader counters {rd}")
+            r = {"emits": held["n"], "words_compared": int(words.size),
+                 "stats": plain, "steps": agg.steps_total,
+                 "intermetrics": len(ims)}
+            if run != "corpus":
+                r["worst_percentile_gap_vs_phase8_feed"] = \
+                    _same_intermetrics(ims, feed_ims,
+                                       f"{label} vs phase 8 feed")
+            steps += agg.steps_total
+            runs[run] = r
+            del agg, state, res
+        launches = {"fused_ingest": cuda_ingest.launches,
+                    "digest_quantiles": cuda_digest.launches}
+        # the lint ran beside the child and the K1 runs
+        waiter.join()
+        _check("out" in linted, "phase 17: vtlint did not finish")
+        l_out, l_err = linted["out"]
+        _check(lint.returncode == 0,
+               f"phase 17: vtlint exited {lint.returncode}:\n"
+               f"{l_out[-3000:]}{l_err[-3000:]}")
+        rep = json.loads(l_out.strip().splitlines()[-1])
+        _check(rep["ok"] is True and rep["findings"] == []
+               and len(rep["passes"]) == P17_PASSES,
+               f"phase 17: vtlint ok={rep['ok']}, "
+               f"{len(rep['passes'])} passes, findings {rep['findings']}")
+        _check(launches["fused_ingest"] == steps > 0,
+               f"phase 17: {launches['fused_ingest']} K1 launches for "
+               f"{steps} steps")
+        _check(launches["digest_quantiles"] >= len(P17_RUNS),
+               f"phase 17: K2 launched {launches['digest_quantiles']} "
+               f"times in {len(P17_RUNS)} flushes")
+        return {"lint": {"ok": rep["ok"], "passes": len(rep["passes"]),
+                         "files_parsed": rep["files_parsed"],
+                         "runtime_s": rep["runtime_s"],
+                         "wall_s": linted["wall_s"],
+                         "pass_s": {r["name"]: r["runtime_s"]
+                                    for r in rep["passes"]}},
+                "sanitized_library": child_rep["library"],
+                "child_s": child_rep["child_s"], "child_wall_s": child_wall,
+                "runs": runs, "launches": launches,
+                "phase_s": time.perf_counter() - t_phase}
+    finally:
+        for p in (lint, child):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def k1_ab(trees) -> None:
     """K1 at the default shape (phase 3's kernel_ingest: a warm default
     table, the main path's Zipf batch and the hot batch, each held
@@ -6434,6 +6817,9 @@ def k1_ab(trees) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sanitized-child"]:
+        # phase 17's child: no torch, no CUDA call (see sanitized_child)
+        return sanitized_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -6464,7 +6850,7 @@ def main() -> int:
         t_lap[0] = now
     card = device_line()
     print("card:", card)
-    build_s = build_kernels()
+    build_s = build_kernels(sanitized=True)
 
     clock_hz = sm_clock_hz()
     ingest = kernel_ingest(device, clock_hz)
@@ -6496,7 +6882,8 @@ def main() -> int:
 
     lap("4")
     # phase 8, right after phase 4: the same lines on the native path
-    nat, udp_ims = native_path(device, lines, main_ims)
+    p8 = {}
+    nat, udp_ims = native_path(device, lines, main_ims, keep=p8)
     del main_ims
     for route, r in nat.items():
         print(f"native path, {route}, oracles:", json.dumps(
@@ -6789,6 +7176,22 @@ def main() -> int:
           f"{snk['phase_s']:.1f} s")
     lap("16")
 
+    # phase 17: the port's lint and its sanitized engine
+    lnt = lint_and_sanitized_path(device, lines, p8.pop("feed_ims"))
+    print("lint and sanitized engine:", json.dumps(lnt))
+    p17 = lnt["launches"]
+    print(f"phase 17 on {card}: vtlint ok={lnt['lint']['ok']}, "
+          f"{lnt['lint']['passes']} passes, {lnt['lint']['files_parsed']} "
+          f"files in {lnt['lint']['runtime_s']:.1f} s (its process "
+          f"{lnt['lint']['wall_s']:.1f} s); sanitized engine "
+          f"{lnt['sanitized_library']}: child {lnt['child_wall_s']:.1f} s; "
+          "packed buffers equal word for word: " + ", ".join(
+              f"{k} {r['emits']} ({r['words_compared']} words)"
+              for k, r in lnt["runs"].items())
+          + f"; K1 {p17['fused_ingest']} launches, K2 "
+          f"{p17['digest_quantiles']}; phase {lnt['phase_s']:.1f} s")
+    lap("17")
+
     # every run whose quantiles are held to the exact oracle: its worst
     # p50 and p99 errors beside their limits
     gated = {"4": main, "5": big, "7": wide, "9": srv,
@@ -6823,7 +7226,8 @@ def main() -> int:
                  "13": p13["fused_ingest"],
                  "14": p14["fused_ingest"],
                  "15": p15["fused_ingest"],
-                 "16": p16["fused_ingest"]},
+                 "16": p16["fused_ingest"],
+                 "17": p17["fused_ingest"]},
              max_abs_err=ingest["max_abs_err"], ms=ingest["ms"],
              plain_ms=ingest["plain_ms"], bound_ms=ingest["bound_ms"],
              bound_by=ingest["bound_by"], library_ms=None,
@@ -6854,7 +7258,8 @@ def main() -> int:
                  "13": p13["digest_quantiles"],
                  "14": p14["digest_quantiles"],
                  "15": p15["digest_quantiles"],
-                 "16": p16["digest_quantiles"]},
+                 "16": p16["digest_quantiles"],
+                 "17": p17["digest_quantiles"]},
              max_abs_err=max(d["max_abs_err"] for d in digests),
              ms=digests[0]["ms"], plain_ms=digests[0]["plain_ms"],
              bound_ms=digests[0]["bound_ms"],

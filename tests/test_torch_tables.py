@@ -356,7 +356,7 @@ def test_engine_table_stats_and_staged_capacities_match_jax():
     data = b"\n".join([b"ts.c%d:1|c" % i for i in range(100)]
                       + [b"ts.g%d:1|g" % i for i in range(10)])
     out = []
-    for agg, eng in ((jagg, jagg.eng), (tagg, tagg)):
+    for agg, eng in ((jagg, jagg.eng), (tagg, tagg.eng)):
         agg.feed(data)
         before = eng.table_stats()
         eng.capacity_set(128, 0, 0, 0)

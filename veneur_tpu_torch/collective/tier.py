@@ -98,8 +98,8 @@ class CollectiveGlobalTier(ShardedAggregator):
         self.absorbed_rows = 0
         # always-on phase timers: a private Timer until a host Server
         # injects its registry-owned one (set_phase_timer). Phases: stage
-        # (absorb_raw host staging), all_to_all_route (routed step),
-        # replica_merge and flush (compute_flush)
+        # (absorb_raw host staging), all_to_all_route (the routed step's
+        # enqueue), replica_merge and flush (compute_flush)
         self._phase_timer = Timer(
             "veneur.collective.phase_duration_ns",
             help="collective tier phase wall time by phase (ns)",
@@ -168,8 +168,10 @@ class CollectiveGlobalTier(ShardedAggregator):
         t0 = time.perf_counter_ns()
         routed_ingest(self.state, buf.to(self.device), spec=self.pspec,
                       sizes=sizes)
-        self._phase_timer.observe(time.perf_counter_ns() - t0,
-                                  phase="all_to_all_route")
+        # the routed step's enqueue, as the JAX tier records this phase;
+        # _count_step samples the card's completion into step_ns
+        dispatch_dt = time.perf_counter_ns() - t0
+        self._phase_timer.observe(dispatch_dt, phase="all_to_all_route")
         self.steps_total += 1
         self._count_step(t0)
         # absorbed digest rows land in temp cells like any other ingest;
@@ -307,6 +309,7 @@ class CollectiveGlobalTier(ShardedAggregator):
         finally:
             # the flush copies its packed result to the host, so this is
             # the flush's wall time, device work included
+            # vtlint: disable=timer-sync -- callee's .cpu() copy of the packed result is the sync
             self._phase_timer.observe(time.perf_counter_ns() - t0,
                                       phase="flush")
             if mspan is not None:

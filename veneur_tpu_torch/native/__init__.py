@@ -8,6 +8,14 @@ the first `NativeIngest(...)`, never at import, into the git-ignored
 written to a temporary name and renamed, so processes that race to build
 it never load a half-written file. A failed build or load raises with the
 compiler's message: nothing falls back to the Python parser.
+
+``VENEUR_NATIVE_SANITIZE=1`` (the JAX package's switch) builds it with
+AddressSanitizer and UndefinedBehaviorSanitizer instead, as
+``libdogstatsd_san_<key>.so``: the key covers the flags, so sanitized and
+plain processes never share a file. CPython is not instrumented, so the
+loading process must have the sanitizer runtimes preloaded
+(``LD_PRELOAD`` of libasan and libubsan; tests/test_torch_native_sanitize.py
+and chip_smoke.py phase 17 start such a child).
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import numpy as np
 _SRC = Path(__file__).resolve().parent / "dogstatsd.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+SANITIZE_FLAGS = ("-g", "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all", "-fno-omit-frame-pointer")
 
 # rings_inject verdicts (dogstatsd.cpp ring_push2): BACKPRESSURE means a
 # full ring refused the datagram WITHOUT counting it — pace and retry;
@@ -38,16 +48,32 @@ KIND_NAMES = {0: "counter", 1: "gauge", 2: "histogram", 3: "set",
 KIND_IDS = {v: k for k, v in KIND_NAMES.items()}
 
 
-def build() -> Path:
-    """Compile (or reuse) the engine's shared library; returns its path."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src).hexdigest()[:16]
-    so = BUILD_DIR / f"libdogstatsd_{key}.so"
+def sanitized() -> bool:
+    """True when this process builds and loads the sanitized engine."""
+    return os.environ.get("VENEUR_NATIVE_SANITIZE") == "1"
+
+
+def library(sanitize: Optional[bool] = None) -> tuple:
+    """(g++ flags, library path) of the plain or sanitized build (by
+    default as VENEUR_NATIVE_SANITIZE says); builds nothing."""
+    if sanitize is None:
+        sanitize = sanitized()
+    flags = GXX_FLAGS + SANITIZE_FLAGS if sanitize else GXX_FLAGS
+    stem = "libdogstatsd_san_" if sanitize else "libdogstatsd_"
+    key = hashlib.sha256(" ".join(flags).encode()
+                         + _SRC.read_bytes()).hexdigest()[:16]
+    return flags, BUILD_DIR / f"{stem}{key}.so"
+
+
+def build(sanitize: Optional[bool] = None) -> Path:
+    """Compile (or reuse) the engine's shared library, plain or sanitized
+    (by default as VENEUR_NATIVE_SANITIZE says); returns its path."""
+    flags, so = library(sanitize)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libdogstatsd_{key}.{os.getpid()}.tmp"
-    res = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    res = subprocess.run(["g++", *flags, "-o", str(tmp), str(_SRC)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -43,6 +43,7 @@ def sync_and_time(token) -> int:
     if t is not None and t.device.type == "cuda":
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(t.device))
+        # vtlint: disable=torch-hot-path -- deliberate sampled device sync
         done.synchronize()
     return time.perf_counter_ns() - t0
 

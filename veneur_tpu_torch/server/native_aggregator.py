@@ -437,12 +437,6 @@ class NativeAggregator(Aggregator):
         self.eng.set_tenant(name)
 
     # -- key-table growth ----------------------------------------------------
-    def capacity_set(self, counter: int, gauge: int, set_: int,
-                     histo: int) -> None:
-        """Stage new per-kind engine capacities; the next swap's reset
-        applies them."""
-        self.eng.capacity_set(counter, gauge, set_, histo)
-
     def table_stats(self) -> dict:
         """{kind: (allocated, cumulative dropped, capacity)} of the
         engine's four key tables."""
@@ -562,7 +556,6 @@ class NativeShardedAggregator(ShardedAggregator):
     tenant_restore = NativeAggregator.tenant_restore
     tenant_rows_drain = NativeAggregator.tenant_rows_drain
     set_tenant = NativeAggregator.set_tenant
-    capacity_set = NativeAggregator.capacity_set
     table_stats = NativeAggregator.table_stats
     readers_stop = NativeAggregator.readers_stop
 
